@@ -3,19 +3,31 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``gaussiansplattingmlx_tpu_torch/csrc``,
-checks each kernel against its plain PyTorch version at the shapes of the
-serving path, then drives that path once through its entry point
-(``gaussiansplattingmlx_tpu_torch.render_cli.main``): the bench scene of
-100,000 Gaussians at SH degree 3, rendered at 800x800 from 4 orbit views plus
-a 16-frame throughput loop.  Every phase prints one line; any failure raises
-and exits non-zero before the last line, which is the JSON device record.
-Needs a CUDA device, the repository checkout beside this file, and nvcc.
-Imports no JAX.
+Builds the port's CUDA kernels from ``gaussiansplattingmlx_tpu_torch/csrc``
+and checks each against its plain PyTorch version at the shapes of its path:
+
+* K1 forward compositing and K2 merge-gather on the serving path's inputs,
+  then the serving path through its entry point
+  (``gaussiansplattingmlx_tpu_torch.render_cli.main``): the bench scene of
+  100,000 Gaussians at SH degree 3, rendered at 800x800 from 4 orbit views
+  plus a 16-frame throughput loop;
+* K3 backward compositing and K4 per-Gaussian segment sum on the training
+  buffers of the bench camera (the cotangent of the real L1 + SSIM loss),
+  K3 also at tile 32 on a small scene; then the training path through its
+  entry point (``train.trainer.Trainer.run``): 20 steps at 800x800, SH3,
+  tile 32, from a 100,000-point cloud of the bench scene, against targets
+  rendered by the port from 4 orbit views.
+
+Each main path runs with every launch counter set to 0 just before it and
+read just after.  Every phase prints one line; any failure raises and exits
+non-zero before the kernels line, the card line and the last line (the JSON
+device record).  Needs a CUDA device, the repository checkout beside this
+file, and nvcc.  Imports no JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -32,12 +44,39 @@ SH_DEGREE = 3
 WIDTH = HEIGHT = 800
 FOCAL = 1111.0
 SEED = 0
+TRAIN_STEPS = 20
+TRAIN_VIEWS = 4
+# The training run composites 32x32 tiles, as the JAX package's bench does
+# (bench.py:77): the 100,000-point initialisation's splats (scales from the
+# 3-nearest-neighbour distances) need ~14.4 M pairs per view at tile 16,
+# above the default pair limit of 2^23, and ~4.0 M at tile 32.
+TRAIN_TILE = 32
 # Tolerances of the JAX package's Pallas-vs-oracle checks
 # (tests/test_rasterize_pallas.py): the kernel marches serially, the plain
 # version uses a cumulative product, so transmittance rounds differently.
 COLOR_RTOL, COLOR_ATOL = 1e-4, 1e-5
 DEPTH_RTOL, DEPTH_ATOL = 1e-4, 1e-4
 NCON_MISMATCH = 0.003
+# Backward rows: the JAX package's Pallas-vs-oracle gradient tolerance
+# (tests/test_rasterize_pallas.py:151), atol scaled by each row's largest
+# magnitude because the rows differ by orders of magnitude in scale (a conic
+# gradient is ~pixels^2 times a colour gradient).  K3 rebuilds transmittance
+# from the stored alpha and sums over pixels in a tree; the plain version
+# differentiates a cumulative product.
+GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
+# Segment sums: another summation order than index_add_'s; atol 1e-6 of the
+# largest sum covers segments that cancel.
+SEGSUM_RTOL, SEGSUM_ATOL = 1e-5, 1e-6
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s
+# and float32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Operations per (pixel, record taken) for the compute bounds: K1 ~24 (offset
+# 2, quadratic form 8, exp 1, opacity and clamp 2, weight 1, four
+# multiply-adds 8, transmittance 2); K3 ~60 (alpha again 13, undo and weight
+# 4, cotangent dot 7, dl/da 5, suffix sum 2, the ten gradient terms ~19, and
+# one add per term into the pixel sum 10).  K4: one add per live row entry.
+K1_OPS, K3_OPS = 24, 60
 
 
 class SmokeFailure(RuntimeError):
@@ -73,6 +112,15 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of bytes over the HBM
+    rate and operations over the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def bench_scene(path: Path) -> None:
     """The JAX package's bench scene (bench.py), drawn from numpy with seed
     SEED, written as a Gaussian PLY: points N(0, 0.6^2), colours U(0.05,
@@ -94,50 +142,51 @@ def bench_scene(path: Path) -> None:
                            scales, rot)
 
 
-def staged_inputs(ply_path: Path, device):
-    """The serving path's real kernel inputs for the bench camera (z = -4):
-    the merge-gather's cum/table and the compositing kernel's staged buffer,
-    at the auto pair budget render_cli would pick."""
+def bench_camera(device):
+    from gaussiansplattingmlx_tpu_torch.utils.camera import Camera
+
+    c2w = np.eye(4)
+    c2w[2, 3] = -4.0
+    t = Camera.from_c2w(WIDTH, HEIGHT, FOCAL, FOCAL, c2w).tensors()
+    return [torch.as_tensor(np.asarray(t[k])).to(device) for k in
+            ("view", "proj", "camera_center", "fov_x", "fov_y", "focal_x", "focal_y")]
+
+
+def bench_geometry(ply_path: Path, device):
+    """Projection of the bench scene through the bench camera (z = -4):
+    (packed, rect_min, rect_max, radii, depths) and the auto pair budget
+    render_cli would pick (probe peak x 1.25 in 512-slot quanta)."""
     from gaussiansplattingmlx_tpu_torch.config import RasterizerConfig
     from gaussiansplattingmlx_tpu_torch.data import ply
     from gaussiansplattingmlx_tpu_torch.models.gaussians import activations, params_from_numpy
     from gaussiansplattingmlx_tpu_torch.ops import projection, rasterize_ref, staging
-    from gaussiansplattingmlx_tpu_torch.utils.camera import Camera
 
     params = params_from_numpy(ply.read_gaussian_ply(ply_path), device)
     cfg = RasterizerConfig()
-    c2w = np.eye(4)
-    c2w[2, 3] = -4.0
-    t = Camera.from_c2w(WIDTH, HEIGHT, FOCAL, FOCAL, c2w).tensors()
     with torch.no_grad():
         means, shs, opacity, scales, rots = activations(params)
-        p = projection.project_gaussians(
-            means, scales, rots, shs,
-            *(torch.as_tensor(t[k]).to(device) for k in ("view", "proj", "camera_center")),
-            t["fov_x"], t["fov_y"], t["focal_x"], t["focal_y"], WIDTH, HEIGHT, SH_DEGREE,
-        )
+        p = projection.project_gaussians(means, scales, rots, shs, *bench_camera(device),
+                                         WIDTH, HEIGHT, SH_DEGREE)
         packed = rasterize_ref.pack_gaussians(p.means2d, p.conic, p.colors, opacity, p.depths)
         args = (packed, p.rect_min, p.rect_max, p.radii, p.depths)
-
-        def static(max_pairs):
-            return staging.StagingStatic(WIDTH, HEIGHT, cfg.tile_w, cfg.tile_h,
-                                         max_pairs, cfg.chunk_size)
-
-        e, _ = staging.merge_table(static(cfg.max_pairs_limit), *args)
-        total = int(e.num_pairs) + int(e.overflow_pairs)
-        max_pairs = max(512, -(-int(total * 1.25) // 512) * 512)
-        st = static(max_pairs)
-        e, tbl = staging.merge_table(st, *args)
-        staged = staging.stage_pairs_sorted(st, *args)
-    return e, tbl, st, staged, total
+        probe = staging.StagingStatic(WIDTH, HEIGHT, cfg.tile_w, cfg.tile_h,
+                                      cfg.max_pairs_limit, cfg.chunk_size)
+        e, _ = staging.merge_table(probe, *args)
+    total = int(e.num_pairs) + int(e.overflow_pairs)
+    max_pairs = max(512, -(-int(total * 1.25) // 512) * 512)
+    return args, total, staging.StagingStatic(WIDTH, HEIGHT, cfg.tile_w, cfg.tile_h,
+                                              max_pairs, cfg.chunk_size)
 
 
-def check_merge(e, tbl, max_pairs, device):
-    from gaussiansplattingmlx_tpu_torch.ops import binning, merge_cuda
+def check_merge(args, st, device):
+    from gaussiansplattingmlx_tpu_torch.ops import binning, merge_cuda, staging
 
     def bit_equal(a, b):
         return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
+    with torch.no_grad():
+        e, tbl = staging.merge_table(st, *args)
+    max_pairs = st.max_pairs
     got = merge_cuda.merge_gather(e.cum_keep, tbl, max_pairs)
     want = merge_cuda.merge_gather_plain(e.cum_keep, tbl, max_pairs)
     torch.cuda.synchronize()
@@ -165,21 +214,29 @@ def check_merge(e, tbl, max_pairs, device):
         torch.cuda.synchronize()
         require(bit_equal(got2, want2), f"merge_gather kernel != plain ({budget} slots)")
     require(bool((got2[:, plain_total:] == 0).all()), "slots past the last pair must be zero")
-    print(f"merge_gather: bit-exact vs plain on {tbl.shape[1]} gaussians x "
-          f"{max_pairs} slots and on two synthetic budgets; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    return {"max_abs_err": float((got - want).abs().max()), "ms": ms, "plain_ms": plain_ms}
+    rows, n_tbl = tbl.shape
+    # One binary search per slot is ~log2(n) integer compares: far below the
+    # byte time, so the bound is the bytes (cum and table in, output out).
+    lim = bound(4.0 * (n_tbl + rows * n_tbl + rows * max_pairs), 0.0)
+    print(f"merge_gather: bit-exact vs plain on {n_tbl} gaussians x {max_pairs} slots "
+          f"and on two synthetic budgets; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']})", flush=True)
+    return {"max_abs_err": float((got - want).abs().max()), "ms": ms, "plain_ms": plain_ms,
+            **lim, "library_ms": None}
 
 
-def check_raster(st, staged):
-    from gaussiansplattingmlx_tpu_torch.ops import rasterize_cuda
+def check_raster(args, st):
+    from gaussiansplattingmlx_tpu_torch.ops import rasterize_cuda, staging
 
+    with torch.no_grad():
+        staged = staging.stage_pairs_sorted(st, *args)
+    require(int(staged.overflow_pairs) == 0, "staging at the auto budget must not overflow")
     grid_w = -(-st.image_width // st.tile_w)
     grid_h = -(-st.image_height // st.tile_h)
-    args = (staged.records_cm, staged.tile_start, staged.tile_count,
-            grid_w, grid_h, st.tile_w, st.tile_h)
-    got = rasterize_cuda.raster_fwd(*args)
-    want = rasterize_cuda.raster_fwd_plain(*args)
+    fargs = (staged.records_cm, staged.tile_start, staged.tile_count,
+             grid_w, grid_h, st.tile_w, st.tile_h)
+    got = rasterize_cuda.raster_fwd(*fargs)
+    want = rasterize_cuda.raster_fwd_plain(*fargs)
     torch.cuda.synchronize()
     require(bool(torch.isfinite(got).all()), "raster kernel output not finite")
     torch.testing.assert_close(got[:, 0:3], want[:, 0:3], rtol=COLOR_RTOL, atol=COLOR_ATOL)
@@ -188,12 +245,17 @@ def check_raster(st, staged):
     mismatch = float((got[:, 5] != want[:, 5]).float().mean())
     require(mismatch <= NCON_MISMATCH, f"n_contrib mismatch {mismatch}")
     err = float((got[:, :5] - want[:, :5]).abs().max())
-    ms = cuda_ms(lambda: rasterize_cuda.raster_fwd(*args))
-    plain_ms = cuda_ms(lambda: rasterize_cuda.raster_fwd_plain(*args), reps=3)
-    print(f"raster_fwd: within tolerance of plain on {int(staged.num_pairs)} pairs "
+    ms = cuda_ms(lambda: rasterize_cuda.raster_fwd(*fargs))
+    plain_ms = cuda_ms(lambda: rasterize_cuda.raster_fwd_plain(*fargs), reps=3)
+    pairs = int(staged.num_pairs)
+    taken = float(got[:, 5].sum())
+    # Bytes: the 11 record rows of every pair, tile ranges, the output.
+    lim = bound(4.0 * (11 * pairs + 2 * grid_w * grid_h + got.numel()), K1_OPS * taken)
+    print(f"raster_fwd: within tolerance of plain on {pairs} pairs "
           f"(max abs err {err:.3g}, n_contrib mismatch {mismatch:.2e}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms "
+          f"({lim['bound_by']}, {taken:.0f} pixel-records taken)", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None}
 
 
 def check_small_render(device):
@@ -204,16 +266,7 @@ def check_small_render(device):
     from gaussiansplattingmlx_tpu_torch.render import render
     from gaussiansplattingmlx_tpu_torch.utils.camera import Camera
 
-    rng = np.random.default_rng(SEED + 1)
-    n = 400
-    raw = {
-        "xyz": rng.normal(size=(n, 3)).astype(np.float32) * 0.5,
-        "features_dc": rng.normal(size=(n, 1, 3)).astype(np.float32),
-        "features_rest": (rng.normal(size=(n, 15, 3)) * 0.1).astype(np.float32),
-        "scales": np.log(rng.uniform(0.02, 0.1, size=(n, 3))).astype(np.float32),
-        "rotation": rng.normal(size=(n, 4)).astype(np.float32),
-        "opacity": rng.normal(0.5, 1.0, size=(n, 1)).astype(np.float32),
-    }
+    raw = small_scene()
     c2w = np.eye(4)
     c2w[2, 3] = -4.0
     t = Camera.from_c2w(100, 72, 90.0, 90.0, c2w).tensors()
@@ -237,6 +290,305 @@ def check_small_render(device):
           f"({int(g_aux.num_pairs)} pairs, 100x72, SH3)", flush=True)
 
 
+def small_scene(n=400):
+    rng = np.random.default_rng(SEED + 1)
+    return {
+        "xyz": rng.normal(size=(n, 3)).astype(np.float32) * 0.5,
+        "features_dc": rng.normal(size=(n, 1, 3)).astype(np.float32),
+        "features_rest": (rng.normal(size=(n, 15, 3)) * 0.1).astype(np.float32),
+        "scales": np.log(rng.uniform(0.02, 0.1, size=(n, 3))).astype(np.float32),
+        "rotation": rng.normal(size=(n, 4)).astype(np.float32),
+        "opacity": rng.normal(0.5, 1.0, size=(n, 1)).astype(np.float32),
+    }
+
+
+def assert_rows_close(got, want, what):
+    for r in range(want.shape[0]):
+        scale = max(float(want[r].abs().max()), 1e-30)
+        try:
+            torch.testing.assert_close(got[r], want[r], rtol=GRAD_RTOL, atol=GRAD_ATOL * scale)
+        except AssertionError as exc:
+            raise SmokeFailure(f"{what}: row {r}: {exc}") from None
+
+
+def loss_cotangent_block(records_cm, tile_start, tile_count, width, height, tile, target):
+    """K1 forward of a training buffer, then the cotangent block of the real
+    L1 + SSIM loss against ``target`` (the block K3 reads)."""
+    from gaussiansplattingmlx_tpu_torch.ops import losses, rasterize_cuda
+
+    grid_w, grid_h = -(-width // tile), -(-height // tile)
+    out = rasterize_cuda.raster_fwd(records_cm, tile_start, tile_count, grid_w, grid_h,
+                                    tile, tile)
+    leaf = out.detach().requires_grad_()
+    img = rasterize_cuda._untile(leaf, grid_w, grid_h, tile, tile, width, height)
+    zeros = torch.zeros_like(img.depth)
+    loss, _ = losses.total_loss(img.color, target, img.depth, zeros, zeros)
+    (cot,) = torch.autograd.grad(loss, leaf)
+    return rasterize_cuda.cotangent_block(cot, out[:, 4:6]), out
+
+
+def check_raster_bwd(args, st, target, device):
+    """K3 against its plain version on the bench camera's training buffer
+    with the L1 + SSIM cotangent (tile 16), and on a small scene at tile 32;
+    two launches must be bit-identical.  Returns (the kernel line entry, the
+    training buffer's gid and K3 rows for the K4 check)."""
+    from gaussiansplattingmlx_tpu_torch.ops import rasterize_cuda, staging
+
+    with torch.no_grad():
+        sp, gid = staging._stage_train_impl(st, *args)
+    require(int(sp.overflow_pairs) == 0, "training staging must not overflow")
+    tile = st.tile_w
+    grid_w, grid_h = -(-WIDTH // tile), -(-HEIGHT // tile)
+    block, out = loss_cotangent_block(sp.records_cm, sp.tile_start, sp.tile_count,
+                                      WIDTH, HEIGHT, tile, target)
+    bargs = (sp.records_cm, sp.tile_start, sp.tile_count, block, grid_w, grid_h, tile, tile)
+    got = rasterize_cuda.raster_bwd(*bargs)
+    again = rasterize_cuda.raster_bwd(*bargs)
+    want = rasterize_cuda.raster_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all()), "raster_bwd output not finite")
+    require(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+            "raster_bwd: two launches differ")
+    assert_rows_close(got, want, "raster_bwd at tile 16")
+    err = float((got - want).abs().max())
+    ms = cuda_ms(lambda: rasterize_cuda.raster_bwd(*bargs))
+    plain_ms = cuda_ms(lambda: rasterize_cuda.raster_bwd_plain(*bargs), reps=3)
+
+    # Tile 32 on a small scene, same checks.
+    from gaussiansplattingmlx_tpu_torch.models.gaussians import activations, params_from_numpy
+    from gaussiansplattingmlx_tpu_torch.ops import projection, rasterize_ref
+    from gaussiansplattingmlx_tpu_torch.utils.camera import Camera
+
+    w32, h32 = 200, 144
+    params = params_from_numpy(small_scene(), device)
+    c2w = np.eye(4)
+    c2w[2, 3] = -4.0
+    t = Camera.from_c2w(w32, h32, 180.0, 180.0, c2w).tensors()
+    with torch.no_grad():
+        means, shs, opacity, scales, rots = activations(params)
+        p = projection.project_gaussians(
+            means, scales, rots, shs,
+            *[torch.as_tensor(np.asarray(t[k])).to(device) for k in
+              ("view", "proj", "camera_center", "fov_x", "fov_y", "focal_x", "focal_y")],
+            w32, h32, 3)
+        packed = rasterize_ref.pack_gaussians(p.means2d, p.conic, p.colors, opacity, p.depths)
+        st32 = staging.StagingStatic(w32, h32, 32, 32, 16384, 128)
+        sp32, _ = staging._stage_train_impl(st32, packed, p.rect_min, p.rect_max,
+                                            p.radii, p.depths)
+    require(int(sp32.overflow_pairs) == 0 and int(sp32.num_pairs) > 0, "tile-32 staging")
+    target32 = torch.rand((h32, w32, 3), generator=torch.Generator().manual_seed(SEED)).to(device)
+    block32, _ = loss_cotangent_block(sp32.records_cm, sp32.tile_start, sp32.tile_count,
+                                      w32, h32, 32, target32)
+    b32 = (sp32.records_cm, sp32.tile_start, sp32.tile_count, block32,
+           -(-w32 // 32), -(-h32 // 32), 32, 32)
+    g32, g32b = rasterize_cuda.raster_bwd(*b32), rasterize_cuda.raster_bwd(*b32)
+    w32_plain = rasterize_cuda.raster_bwd_plain(*b32)
+    torch.cuda.synchronize()
+    require(torch.equal(g32.view(torch.int32), g32b.view(torch.int32)),
+            "raster_bwd tile 32: two launches differ")
+    assert_rows_close(g32, w32_plain, "raster_bwd at tile 32")
+
+    ncon = block[:, :, 6]
+    taken = float(ncon.sum())
+    replayed = int(torch.minimum(ncon.max(dim=1).values.to(torch.int32), sp.tile_count).sum())
+    # Bytes: 11 record rows of every replayed pair, the cotangent block, tile
+    # ranges, and the whole [16, P] output.
+    lim = bound(4.0 * (11 * replayed + block.numel() + 2 * grid_w * grid_h + got.numel()),
+                K3_OPS * taken)
+    print(f"raster_bwd: within rtol {GRAD_RTOL} / scaled atol {GRAD_ATOL} of plain on "
+          f"{int(sp.num_pairs)} pairs (L1+SSIM cotangent, tile 16; max abs err {err:.3g}) "
+          f"and on {int(sp32.num_pairs)} pairs at tile 32; bit-identical repeats; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms "
+          f"({lim['bound_by']}, {taken:.0f} pixel-records, {replayed} pairs replayed)",
+          flush=True)
+    entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None}
+    return entry, gid, got
+
+
+def check_segsum(gid, rows, num_rec):
+    """K4 against its plain version on the training buffer's gid and K3's
+    rows; two launches bit-identical; torch.segment_reduce as the yardstick."""
+    from gaussiansplattingmlx_tpu_torch.ops import segsum_cuda
+
+    rows_s, offsets = segsum_cuda.sort_by_gid(rows, gid, num_rec)
+    got = segsum_cuda.segment_sum_sorted(rows_s, offsets)
+    again = segsum_cuda.segment_sum_sorted(rows_s, offsets)
+    want = segsum_cuda.segment_sum_sorted_plain(rows_s, offsets)
+    torch.cuda.synchronize()
+    require(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+            "segsum: two launches differ")
+    torch.testing.assert_close(got, want, rtol=SEGSUM_RTOL,
+                               atol=SEGSUM_ATOL * float(want.abs().max()))
+    err = float((got - want).abs().max())
+    ms = cuda_ms(lambda: segsum_cuda.segment_sum_sorted(rows_s, offsets))
+    plain_ms = cuda_ms(lambda: segsum_cuda.segment_sum_sorted_plain(rows_s, offsets))
+    used = int(offsets[-1])
+    lengths = (offsets[1:] - offsets[:-1]).long()
+    data = rows_s[:, :used].T.contiguous()  # the library call's layout
+    library = torch.segment_reduce(data, "sum", lengths=lengths)
+    torch.testing.assert_close(library, got[:, list(segsum_cuda.LIVE_ROWS)],
+                               rtol=SEGSUM_RTOL, atol=SEGSUM_ATOL * float(want.abs().max()))
+    library_ms = cuda_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths))
+    live = len(segsum_cuda.LIVE_ROWS)
+    lim = bound(4.0 * (live * used + offsets.numel() + got.numel()), live * used)
+    print(f"segsum: within rtol {SEGSUM_RTOL} of plain on {used} pairs into {num_rec} "
+          f"gaussians; bit-identical repeats; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.segment_reduce {library_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms "
+          f"({lim['bound_by']})", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **lim,
+            "library_ms": library_ms}
+
+
+def orbit_targets(ply_path: Path, device):
+    """The training data: TRAIN_VIEWS orbit cameras (render_cli's orbit) and
+    the port's own inference renders of the bench scene as targets."""
+    from gaussiansplattingmlx_tpu_torch.config import RasterizerConfig
+    from gaussiansplattingmlx_tpu_torch.data import ply
+    from gaussiansplattingmlx_tpu_torch.data.dataset import TrainData
+    from gaussiansplattingmlx_tpu_torch.models.gaussians import activations, params_from_numpy
+    from gaussiansplattingmlx_tpu_torch.render import render
+    from gaussiansplattingmlx_tpu_torch.render_cli import orbit_c2w
+    from gaussiansplattingmlx_tpu_torch.utils.camera import Camera
+
+    params = params_from_numpy(ply.read_gaussian_ply(ply_path), device)
+    cfg = RasterizerConfig(max_pairs=RasterizerConfig().max_pairs_limit)
+    cams, images = [], []
+    with torch.no_grad():
+        means, shs, opacity, scales, rots = activations(params)
+        for i in range(TRAIN_VIEWS):
+            cam = Camera.from_c2w(WIDTH, HEIGHT, FOCAL, FOCAL,
+                                  orbit_c2w(2 * np.pi * i / TRAIN_VIEWS, 4.0, 0.2))
+            t = cam.tensors()
+            out, aux = render(means, shs, opacity, scales, rots,
+                              *[torch.as_tensor(np.asarray(t[k])).to(device) for k in
+                                ("view", "proj", "camera_center", "fov_x", "fov_y",
+                                 "focal_x", "focal_y")],
+                              WIDTH, HEIGHT, SH_DEGREE, raster_cfg=cfg, inference=True)
+            require(int(aux.overflow_pairs) == 0, "target render overflowed")
+            cams.append(cam)
+            images.append(out.color.cpu().numpy())
+    return TrainData(cameras=cams, images=np.stack(images).astype(np.float32))
+
+
+def training_setup(ply_path: Path, data, device):
+    """A Trainer at the bench workload (100,000 points of the bench scene,
+    their colours, SH3, 800x800, tile TRAIN_TILE), its pair budget set from
+    a probe of every view at the initial parameters with 2x headroom: 20
+    Adam steps can grow the Gaussians' footprints, and no step may
+    overflow."""
+    from gaussiansplattingmlx_tpu_torch import config
+    from gaussiansplattingmlx_tpu_torch.data import ply
+    from gaussiansplattingmlx_tpu_torch.models import gaussians
+    from gaussiansplattingmlx_tpu_torch.ops import binning, projection
+    from gaussiansplattingmlx_tpu_torch.render import render
+    from gaussiansplattingmlx_tpu_torch.train.trainer import Trainer
+    from gaussiansplattingmlx_tpu_torch.utils import sh
+    from gaussiansplattingmlx_tpu_torch.utils.point_cloud import PointCloud
+
+    g = ply.read_gaussian_ply(ply_path)
+    rgb = np.clip(g.features_dc[:, 0, :] * sh.C0 + 0.5, 0.0, 1.0)
+    pc = PointCloud(coords=g.xyz, colors=(rgb * 255.0).astype(np.float32))
+    cfg = config.TrainConfig(
+        iterations=TRAIN_STEPS, init_points=N_GAUSSIANS, log_interval=5,
+        output_dir="", seed=SEED, model=config.ModelConfig(sh_degree=SH_DEGREE),
+        raster=config.RasterizerConfig(tile_w=TRAIN_TILE, tile_h=TRAIN_TILE),
+        densify=config.DensifyConfig(from_iter=10 ** 9),
+    )
+    trainer = Trainer(cfg, data, pc, device=device)
+    state = trainer.state
+    probe = dataclasses.replace(cfg.raster, max_pairs=cfg.raster.max_pairs_limit)
+    peak = peak16 = 0
+    with torch.no_grad():
+        active = gaussians.active_mask(state.params.capacity, state.num_active)
+        acts = gaussians.activations(state.params, active)
+        for i in range(data.num_views):
+            cam = [trainer.views[k][i] for k in ("view", "proj", "camera_center", "fov_x",
+                                                 "fov_y", "focal_x", "focal_y")]
+            _, aux = render(*acts, *cam, WIDTH, HEIGHT, SH_DEGREE, raster_cfg=probe,
+                            active=active, inference=True)
+            peak = max(peak, int(aux.num_pairs) + int(aux.overflow_pairs))
+            # The same view's pair demand at tile 16, for the record.
+            p = projection.project_gaussians(acts[0], acts[3], acts[4], acts[1], *cam,
+                                             WIDTH, HEIGHT, SH_DEGREE, active=active)
+            e = binning.expand_pairs(p.rect_min, p.rect_max, p.radii, WIDTH, HEIGHT,
+                                     16, 16, 512)
+            peak16 = max(peak16, int(e.num_pairs) + int(e.overflow_pairs))
+    trainer.set_max_pairs(max(512, -(-2 * peak // 512) * 512))
+    return trainer, peak, peak16
+
+
+def check_training_buffers(trainer, device):
+    """K2, K1, K3 and K4 against their plain versions on the buffers of the
+    training run's first step: its tile and pair budget, the initial
+    parameters, view 0 and the L1 + SSIM cotangent against its target."""
+    from gaussiansplattingmlx_tpu_torch.models import gaussians
+    from gaussiansplattingmlx_tpu_torch.ops import (
+        merge_cuda, projection, rasterize_cuda, rasterize_ref, segsum_cuda, staging,
+    )
+
+    cfg = trainer.cfg.raster
+    state, views = trainer.state, trainer.views
+    cam = [views[k][0] for k in ("view", "proj", "camera_center", "fov_x", "fov_y",
+                                 "focal_x", "focal_y")]
+    with torch.no_grad():
+        active = gaussians.active_mask(state.params.capacity, state.num_active)
+        means, shs, opacity, scales, rots = gaussians.activations(state.params, active)
+        p = projection.project_gaussians(means, scales, rots, shs, *cam, WIDTH, HEIGHT,
+                                         SH_DEGREE, active=active)
+        packed = rasterize_ref.pack_gaussians(p.means2d, p.conic, p.colors, opacity, p.depths)
+        args = (packed, p.rect_min, p.rect_max, p.radii, p.depths)
+        st = staging.StagingStatic(WIDTH, HEIGHT, cfg.tile_w, cfg.tile_h, cfg.max_pairs,
+                                   cfg.chunk_size)
+        e, tbl = staging.merge_table(st, *args)
+        g2 = merge_cuda.merge_gather(e.cum_keep, tbl, st.max_pairs)
+        w2 = merge_cuda.merge_gather_plain(e.cum_keep, tbl, st.max_pairs)
+        require(torch.equal(g2.view(torch.int32), w2.view(torch.int32)),
+                "merge_gather kernel != plain on the training buffers")
+        del g2, w2
+        sp, gid = staging._stage_train_impl(st, *args)
+    require(int(sp.overflow_pairs) == 0, "training buffers overflow")
+    tile = cfg.tile_w
+    grid = (-(-WIDTH // tile), -(-HEIGHT // tile))
+    fargs = (sp.records_cm, sp.tile_start, sp.tile_count, *grid, tile, tile)
+    block, got1 = loss_cotangent_block(sp.records_cm, sp.tile_start, sp.tile_count,
+                                       WIDTH, HEIGHT, tile, views["target_rgb"][0])
+    want1 = rasterize_cuda.raster_fwd_plain(*fargs)
+    torch.testing.assert_close(got1[:, 0:3], want1[:, 0:3], rtol=COLOR_RTOL, atol=COLOR_ATOL)
+    torch.testing.assert_close(got1[:, 3], want1[:, 3], rtol=DEPTH_RTOL, atol=DEPTH_ATOL)
+    torch.testing.assert_close(got1[:, 4], want1[:, 4], rtol=COLOR_RTOL, atol=COLOR_ATOL)
+    mismatch = float((got1[:, 5] != want1[:, 5]).float().mean())
+    require(mismatch <= NCON_MISMATCH, f"n_contrib mismatch {mismatch} on the training buffers")
+    del want1
+    bargs = (sp.records_cm, sp.tile_start, sp.tile_count, block, *grid, tile, tile)
+    got3 = rasterize_cuda.raster_bwd(*bargs)
+    assert_rows_close(got3, rasterize_cuda.raster_bwd_plain(*bargs),
+                      f"raster_bwd on the training buffers (tile {tile})")
+    rows_s, offsets = segsum_cuda.sort_by_gid(got3, gid, state.params.capacity)
+    got4 = segsum_cuda.segment_sum_sorted(rows_s, offsets)
+    want4 = segsum_cuda.segment_sum_sorted_plain(rows_s, offsets)
+    torch.testing.assert_close(got4, want4, rtol=SEGSUM_RTOL,
+                               atol=SEGSUM_ATOL * float(want4.abs().max()))
+    print(f"training buffers: merge_gather bit-exact, raster_fwd, raster_bwd and segsum "
+          f"within tolerance of plain on {int(sp.num_pairs)} pairs (tile {tile}, "
+          f"max_pairs {cfg.max_pairs}, n_contrib mismatch {mismatch:.2e})", flush=True)
+
+
+def run_training(trainer, counters):
+    """The training path through its entry point, counters zeroed just
+    before and read just after."""
+    for k in counters.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    log = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final = trainer.run(TRAIN_STEPS, on_metrics=log.append)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    return log, final, seconds, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -246,7 +598,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from gaussiansplattingmlx_tpu_torch import render_cli
-    from gaussiansplattingmlx_tpu_torch.ops import _kernels, merge_cuda, rasterize_cuda
+    from gaussiansplattingmlx_tpu_torch.ops import (
+        _kernels, merge_cuda, rasterize_cuda, segsum_cuda,
+    )
 
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -256,7 +610,7 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {gpu} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    # 2. build
+    # 2. build (one nvcc per source, in parallel, then a link)
     t0 = time.perf_counter()
     _kernels.LIBRARY.cdll()
     built = _kernels.LIBRARY.build_seconds
@@ -271,24 +625,24 @@ def main() -> int:
         ply_path = Path(tmp) / "bench_scene.ply"
         bench_scene(ply_path)
 
-        # 3-4. kernel parity at the slice's shapes
-        e, tbl, st, staged, total = staged_inputs(ply_path, device)
-        require(int(staged.overflow_pairs) == 0 and int(staged.num_pairs) == total > 0,
-                "staging at the auto budget must not overflow")
-        merge = check_merge(e, tbl, st.max_pairs, device)
-        raster = check_raster(st, staged)
+        # 3. serving kernels at the serving path's shapes
+        args, total, st = bench_geometry(ply_path, device)
+        require(total > 0, "no pairs in the bench view")
+        merge = check_merge(args, st, device)
+        raster = check_raster(args, st)
         check_small_render(device)
 
-        # 5. the serving path through its entry point
-        merge_cuda.KERNEL.launches = 0
-        rasterize_cuda.KERNEL.launches = 0
+        # 4. the serving path through its entry point
+        serve_counters = {"merge_gather": merge_cuda.KERNEL,
+                          "raster_fwd": rasterize_cuda.KERNEL}
+        for k in serve_counters.values():
+            k.launches = 0
         res = render_cli.main([
             "--ply", str(ply_path), "--out", str(Path(tmp) / "renders"),
             "--orbit", "4", "--width", str(WIDTH), "--height", str(HEIGHT),
             "--focal", str(FOCAL), "--bench-frames", "16", "--device", "cuda",
         ])
-        launches = {"merge_gather": merge_cuda.KERNEL.launches,
-                    "raster_fwd": rasterize_cuda.KERNEL.launches}
+        serve_launches = {name: k.launches for name, k in serve_counters.items()}
         require(all(o == 0 for o in res.overflow_pairs) and res.bench_overflow_pairs == 0,
                 f"overflow in the render: {res.overflow_pairs} / {res.bench_overflow_pairs}")
         require(all(npairs > 0 for npairs in res.num_pairs), "no pairs rendered")
@@ -296,21 +650,65 @@ def main() -> int:
             require(c.shape == (HEIGHT, WIDTH, 3), f"image shape {c.shape}")
             require(bool(np.isfinite(c).all()), "non-finite pixels")
             require(float(c.std()) > 1e-3 and float(c.max()) > 0.05, "blank image")
-        require(all(v > 0 for v in launches.values()), f"kernel not launched: {launches}")
+        require(all(v > 0 for v in serve_launches.values()),
+                f"kernel not launched: {serve_launches}")
         print(f"render: {N_GAUSSIANS} gaussians SH{SH_DEGREE} {WIDTH}x{HEIGHT}, "
               f"num_pairs {res.num_pairs}, max_pairs {res.max_pairs}, "
               f"{res.bench_fps:.2f} frames/s over {res.bench_frames} frames, "
-              f"launches {launches} | {gpu}", flush=True)
+              f"launches {serve_launches} | {gpu}", flush=True)
+
+        # 5. training kernels on the bench camera's training buffer
+        data = orbit_targets(ply_path, device)
+        target = torch.as_tensor(data.images[0]).to(device)
+        raster_bwd, gid, rows = check_raster_bwd(args, st, target, device)
+        segsum = check_segsum(gid, rows, N_GAUSSIANS)
+
+        # 6. the training path through its entry point
+        trainer, peak, peak16 = training_setup(ply_path, data, device)
+        check_training_buffers(trainer, device)
+        train_counters = {"merge_gather": merge_cuda.KERNEL,
+                          "raster_fwd": rasterize_cuda.KERNEL,
+                          "raster_bwd": rasterize_cuda.BWD_KERNEL,
+                          "segsum": segsum_cuda.KERNEL}
+        log, final, seconds, train_launches = run_training(trainer, train_counters)
+        peak_mem = torch.cuda.max_memory_allocated()
+        require(len(log) >= 2 and all(np.isfinite(m["loss"]) for m in log),
+                f"non-finite or missing losses: {[m['loss'] for m in log]}")
+        require(log[-1]["loss"] < log[0]["loss"],
+                f"loss did not fall: {log[0]['loss']} -> {log[-1]['loss']}")
+        require(final["grad_coverage"] > 0, "no gaussian received a gradient")
+        require(final["overflow_pairs_acc"] == 0, "a training step overflowed the budget")
+        require(int(trainer.state.step) == TRAIN_STEPS, "not every step ran")
+        require(all(v == TRAIN_STEPS for v in train_launches.values()),
+                f"launches per kernel != {TRAIN_STEPS} steps: {train_launches}")
+        window = sum(5 / m["iters_per_s"] for m in log[1:])
+        print(f"train: {TRAIN_STEPS} steps of {int(final['num_active'])} gaussians SH{SH_DEGREE} "
+              f"{WIDTH}x{HEIGHT} tile {TRAIN_TILE} over {TRAIN_VIEWS} views, max_pairs "
+              f"{trainer.cfg.raster.max_pairs} (probe peak {peak}; {peak16} at tile 16), num_pairs "
+              f"{int(final['num_pairs'])}; loss {log[0]['loss']:.5f} -> {log[-1]['loss']:.5f}, "
+              f"psnr {log[0]['psnr']:.3f} -> {log[-1]['psnr']:.3f} dB, grad_coverage "
+              f"{final['grad_coverage']:.4f}; {TRAIN_STEPS / seconds:.2f} steps/s over all "
+              f"{TRAIN_STEPS} steps, {5 * (len(log) - 1) / window:.2f} steps/s over steps "
+              f"6-{TRAIN_STEPS}; peak memory {peak_mem / 2**30:.3f} GiB; launches "
+              f"{train_launches} | {gpu}", flush=True)
 
     kernels = [
         {"name": "merge_gather", "route": "cuda",
          "source": "gaussiansplattingmlx_tpu_torch/csrc/merge_gather.cu",
          "replaces": "gaussiansplattingmlx_tpu/ops/merge_pallas.py:156",
-         "launches": launches["merge_gather"], **merge},
+         "launches": serve_launches["merge_gather"], **merge},
         {"name": "raster_fwd", "route": "cuda",
          "source": "gaussiansplattingmlx_tpu_torch/csrc/rasterize_fwd.cu",
          "replaces": "gaussiansplattingmlx_tpu/ops/rasterize_pallas.py:210",
-         "launches": launches["raster_fwd"], **raster},
+         "launches": serve_launches["raster_fwd"], **raster},
+        {"name": "raster_bwd", "route": "cuda",
+         "source": "gaussiansplattingmlx_tpu_torch/csrc/rasterize_bwd.cu",
+         "replaces": "gaussiansplattingmlx_tpu/ops/rasterize_pallas.py:473",
+         "launches": train_launches["raster_bwd"], **raster_bwd},
+        {"name": "segsum", "route": "cuda",
+         "source": "gaussiansplattingmlx_tpu_torch/csrc/segsum.cu",
+         "replaces": "gaussiansplattingmlx_tpu/ops/rasterize_pallas.py:726",
+         "launches": train_launches["segsum"], **segsum},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {gpu}", flush=True)

@@ -1,16 +1,18 @@
-"""Rasterizer configuration: the port's copy of the JAX package's
-``RasterizerConfig`` (same fields, same defaults; a test pins the two).
+"""Configuration: the port's copies of the JAX package's config dataclasses
+(same fields, same defaults; a test pins the two packages' fields).
 
-The port keeps its own copy so that it never imports the JAX package.  The
-inference path does not read the training fields (``auto_grow``,
-``auto_shrink``, ``grad_reduce``, ``undo_denom_floor``) or the JAX layout
-selectors (``backend``, ``staging``, ``train_staging``): the port always
-runs the payload-carriage, merge-gather, sorted-order path.
+The port keeps its own copy so that it never imports the JAX package.  It
+does not read the JAX layout selectors (``backend``, ``staging``,
+``train_staging``, ``grad_reduce``): the port always runs the
+payload-carriage, merge-gather, sorted-order path, and reduces gradients
+with its segment-sum kernel.  ``ParallelConfig`` is carried for config files;
+the port trains on one device only so far.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,3 +47,136 @@ class RasterizerConfig:
     backend: str = "auto"
     staging: str = "fused"
     train_staging: str = "sorted"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    sh_degree: int = 4
+    init_opacity: float = 0.1
+    knn_k: int = 3
+    dist2_floor: float = 1e-7
+    # Fixed parameter capacity; inactive slots are culled by the projection.
+    initial_capacity: int = 2 ** 14
+    max_gaussians: int = 1_000_000
+    # SH band warmup: band d trains from iteration d * interval (0 = off).
+    sh_warmup_interval: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """Adam without bias correction, eps inside the denominator, one
+    learning rate per parameter (``train/optimizer.py``)."""
+
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-15
+    bias_correction: bool = False
+    # Per-parameter LR table; xyz decays linearly to lr_xyz * xyz_lr_floor.
+    lr_xyz: float = 1.6e-4
+    lr_features_dc: float = 2.5e-3
+    lr_features_rest: float = 2.5e-3 / 20.0
+    lr_scales: float = 5e-3
+    lr_rotation: float = 1e-3
+    lr_opacity: float = 2.5e-2
+    xyz_lr_floor: float = 0.01
+    spatial_lr_scale: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class DensifyConfig:
+    """Split/clone/prune cadence and thresholds (not ported yet: a run whose
+    iterations reach a densify, prune or opacity-reset step raises)."""
+
+    interval: int = 100
+    from_iter: int = 500
+    until_iter: int = 15000
+    grad_threshold: float = 2e-4
+    max_scale: float = 0.01
+    min_opacity: float = 5e-3
+    split_scale_div: float = 1.6
+    split_noise_factor: float = 0.1
+    clone_noise_std: float = 0.01
+    reset_optimizer_state: bool = True
+    opacity_reset_interval: int = 0
+    opacity_reset_value: float = 0.01
+    prune_world_scale: float = 0.0
+    prune_near_cameras: float = 0.0
+    prune_needle_ratio: float = 0.0
+    prune_until_iter: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    lambda_dssim: float = 0.2
+    lambda_depth: float = 0.0
+    ssim_window: int = 11
+    ssim_sigma: float = 1.5
+    ssim_c1: float = 0.01 ** 2
+    ssim_c2: float = 0.03 ** 2
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraConfig:
+    znear: float = 0.1
+    zfar: float = 100.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    data_axis: str = "data"
+    tile_axis: str = "tile"
+    data_parallel: int = 1
+    tile_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    iterations: int = 30000
+    resize_factor: float = 0.5
+    init_points: int = 16384
+    white_background: bool = False
+    snapshot_interval: int = 100
+    log_interval: int = 10
+    preview_interval: int = 20
+    early_stop_loss: float = 1e-4
+    seed: int = 0
+    output_dir: str = "outputs"
+    checkpoint_interval: int = 1000
+
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    raster: RasterizerConfig = dataclasses.field(default_factory=RasterizerConfig)
+    optim: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
+    densify: DensifyConfig = dataclasses.field(default_factory=DensifyConfig)
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    camera: CameraConfig = dataclasses.field(default_factory=CameraConfig)
+    parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @staticmethod
+    def from_json(text: str) -> "TrainConfig":
+        """Build from JSON; unknown keys are ignored, missing keys default."""
+
+        def build(cls, data):
+            names = {f.name for f in dataclasses.fields(cls)}
+            kwargs = {}
+            for key, value in data.items():
+                if key not in names:
+                    continue
+                sub = _NESTED.get(key)
+                kwargs[key] = build(sub, value) if sub and isinstance(value, dict) else value
+            return cls(**kwargs)
+
+        return build(TrainConfig, json.loads(text))
+
+
+_NESTED = {
+    "model": ModelConfig,
+    "raster": RasterizerConfig,
+    "optim": OptimizerConfig,
+    "densify": DensifyConfig,
+    "loss": LossConfig,
+    "camera": CameraConfig,
+    "parallel": ParallelConfig,
+}

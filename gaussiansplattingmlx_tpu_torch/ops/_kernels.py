@@ -1,10 +1,11 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources in ``gaussiansplattingmlx_tpu_torch/csrc/*.cu`` expose a plain C
-interface.  On first use they are compiled by nvcc for Hopper (``sm_90a``)
-into one shared library under ``gaussiansplattingmlx_tpu_torch/_build/``,
-named by a hash of the sources and flags, and loaded with ctypes.  Nothing
-is built when a module is imported, and nothing here runs for CPU tensors.
+interface.  On first use each is compiled by its own nvcc process for Hopper
+(``sm_90a``), all started together, and the objects are linked into one
+shared library under ``gaussiansplattingmlx_tpu_torch/_build/``, named by a
+hash of the sources and flags, and loaded with ctypes.  Nothing is built
+when a module is imported, and nothing here runs for CPU tensors.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``Kernel.launch`` raises on a non-zero code and
@@ -28,11 +29,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -69,20 +67,31 @@ class _Library:
         if target.exists():
             return target
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cu = [str(s) for s in self.sources() if s.suffix == ".cu"]
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu]
+        cu = [s for s in self.sources() if s.suffix == ".cu"]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+            objs = [Path(tmp_dir) / f"{s.stem}.o" for s in cu]
+            cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(o), str(s)]
+                    for s, o in zip(cu, objs)]
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for c in cmds]
+            logs = [p.communicate()[0] for p in procs]
+            self.build_log = "".join(logs)
+            for cmd, proc, log in zip(cmds, procs, logs):
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+            tmp = Path(tmp_dir) / "lib.so"
+            link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            self.build_log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
+                    f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, target)
         self.build_seconds = time.perf_counter() - t0
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{self.build_log}"
-            )
-        os.replace(tmp, target)
         return target
 
     def cdll(self) -> ctypes.CDLL:

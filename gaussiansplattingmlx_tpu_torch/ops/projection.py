@@ -1,8 +1,9 @@
 """Gaussian projection: world -> view -> NDC -> screen, EWA cov2d, SH color.
 
-Torch counterpart of the JAX package's ``ops/projection.py`` (forward only in
-this port so far).  Plain vectorized torch: a chain of tiny per-Gaussian
-contractions and elementwise math, which needs no hand-written kernel.
+Torch counterpart of the JAX package's ``ops/projection.py``.  Plain
+vectorized torch: a chain of tiny per-Gaussian contractions and elementwise
+math, which needs no hand-written kernel, differentiable by plain autograd
+(radii and rects are detached, as the JAX package stop-grads them).
 
 Semantics replicated exactly, including the reference's quirks:
   * the +1e-6 guard on clip-space w;
@@ -18,6 +19,9 @@ Semantics replicated exactly, including the reference's quirks:
 Float32 throughout.  The small contractions are written as explicit
 products and sums instead of matmuls, so TF32 settings of the card cannot
 lower their precision (the JAX package pins these matmuls to HIGHEST).
+Where the JAX package uses ``maximum``/``minimum``/``clip`` this uses
+``torch.maximum``/``torch.minimum``: at a tie they split the gradient in
+half as JAX does, where ``torch.clamp`` would pass all of it.
 """
 
 from __future__ import annotations
@@ -71,12 +75,14 @@ def project_gaussians(
     cov2d_dilation: float = 0.3,
     radius_eigen_eps: float = 1e-5,
     quat_norm_eps: float = 1e-8,
+    active: torch.Tensor | None = None,
 ) -> ProjectionOutputs:
     """Project N Gaussians through one camera.
 
     means3d [N, 3]; scales [N, 3] activated; quats [N, 4] raw w-first;
     shs [N, K, 3]; view/proj [4, 4] row-vector transforms; camera_center [3];
-    fov/focal scalars (python floats or 0-d tensors).
+    fov/focal scalars (python floats or 0-d tensors); ``active`` [N]
+    (optional): rows with active <= 0 are culled like behind-camera rows.
     """
     w = float(image_width)
     h = float(image_height)
@@ -92,6 +98,8 @@ def project_gaussians(
     p_clip = _rowvec_mm(p_view, proj)  # [N, 4]
     depths = p_view[:, 2]
     visible = depths >= z_cull
+    if active is not None:
+        visible = torch.logical_and(visible, active > 0)
     one = torch.ones((), dtype=f32, device=dev)
     w_den = torch.where(visible, p_clip[:, 3] + ndc_w_eps, one)
     w_inv = 1.0 / w_den
@@ -112,8 +120,10 @@ def project_gaussians(
 
     tan_fov_x = torch.tan(scalar(fov_x) * 0.5)
     tan_fov_y = torch.tan(scalar(fov_y) * 0.5)
-    clip_x = torch.clamp(t2, -tan_fov_x * tanfov_clip, tan_fov_x * tanfov_clip)
-    clip_y = torch.clamp(t2, -tan_fov_y * tanfov_clip, tan_fov_y * tanfov_clip)
+    lim_x = tan_fov_x * tanfov_clip
+    lim_y = tan_fov_y * tanfov_clip
+    clip_x = torch.minimum(torch.maximum(t2, -lim_x), lim_x)
+    clip_y = torch.minimum(torch.maximum(t2, -lim_y), lim_y)
     tx = t0 / clip_x * t2
     ty = t1 / clip_y * t2
     tz = t2
@@ -147,14 +157,15 @@ def project_gaussians(
 
     # --- radius and screen rect ---------------------------------------------
     mid = 0.5 * (c00 + c11)
-    lambda_max = mid + torch.sqrt(torch.clamp(mid * mid - det, min=radius_eigen_eps))
+    lambda_max = mid + torch.sqrt(torch.maximum(mid * mid - det, scalar(radius_eigen_eps)))
     radius = 3.0 * torch.ceil(torch.sqrt(lambda_max))
-    radii = torch.where(visible, radius, torch.zeros((), dtype=f32, device=dev))
+    zero = torch.zeros((), dtype=f32, device=dev)
+    radii = torch.where(visible, radius, zero)
 
-    min_x = torch.clamp(mean_x - radii, min=0.0)
-    min_y = torch.clamp(mean_y - radii, min=0.0)
-    max_x = torch.clamp(mean_x + radii, max=w - 1.0)
-    max_y = torch.clamp(mean_y + radii, max=h - 1.0)
+    min_x = torch.maximum(mean_x - radii, zero)
+    min_y = torch.maximum(mean_y - radii, zero)
+    max_x = torch.minimum(mean_x + radii, scalar(w - 1.0))
+    max_y = torch.minimum(mean_y + radii, scalar(h - 1.0))
 
     return ProjectionOutputs(
         means2d=means2d,

@@ -1,7 +1,10 @@
-"""Tile rasterizer forward over a staged record buffer (kernel K1).
+"""Tile rasterizer over a staged record buffer: forward compositing (kernel
+K1) and backward compositing (kernel K3), with a ``torch.autograd.Function``
+over the two.
 
 Counterpart of the JAX package's ``ops/rasterize_pallas.py``
-(``rasterize_staged`` forward, Pallas ``_fwd_kernel``, ``_untile``).
+(``rasterize_staged``, ``_raster_core``, Pallas ``_fwd_kernel`` and
+``_bwd_kernel_sorted``, ``_untile``).
 
 Record buffer ``records_cm`` [16, P] f32, component-major, rows:
 0 mean_x, 1 mean_y, 2 c00, 3 c01, 4 c10, 5 c11, 6-8 rgb, 9 depth,
@@ -9,9 +12,12 @@ Record buffer ``records_cm`` [16, P] f32, component-major, rows:
 [tile_start[t], tile_start[t] + tile_count[t]) in order; starts need not be
 aligned.  The per-tile output [num_tiles, 6, tile_h * tile_w] holds rgb,
 depth, alpha (= 1 - T) and n_contrib; the background is applied outside.
+The backward writes one gradient row per record column, [16, P] (rows 3 and
+4 both hold d_cs; rows 11-15 and columns no tile replays stay zero).
 
-``raster_fwd`` dispatches on the device of its inputs: CPU tensors take
-``raster_fwd_plain``; CUDA tensors launch ``csrc/rasterize_fwd.cu`` or raise.
+``raster_fwd`` and ``raster_bwd`` dispatch on the device of their inputs:
+CPU tensors take ``raster_fwd_plain`` / ``raster_bwd_plain``; CUDA tensors
+launch ``csrc/rasterize_fwd.cu`` / ``csrc/rasterize_bwd.cu`` or raise.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from .rasterize_ref import RenderOutputs
 
 REC_DIM = 16
 OUT_CHANNELS = 6
+COT_COLS = 8  # cotR, cotG, cotB, cotDepth, cotAlpha, alpha_fwd, ncon_fwd, 0
 _REC_ROWS = 11  # rows the compositing reads
 _MAX_BLOCK = 1024  # one thread per pixel of a tile
 
@@ -33,6 +40,13 @@ KERNEL = _kernels.Kernel(
     [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
      ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p],
+)
+BWD_KERNEL = _kernels.Kernel(
+    "gsplat_raster_bwd",
+    [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+     ctypes.c_int32, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+     ctypes.c_void_p],
 )
 
 
@@ -53,28 +67,56 @@ def _check(records_cm, tile_start, tile_count, grid_w, grid_h, tile_w, tile_h):
           f"tile {tile_w}x{tile_h} exceeds {_MAX_BLOCK} pixels")
 
 
-def raster_fwd_plain(records_cm, tile_start, tile_count, grid_w, grid_h,
-                     tile_w, tile_h, *, alpha_clamp=0.99, transmittance_eps=1e-4,
-                     max_elems=2 ** 24):
-    """Plain torch version: the per-pixel vector identity
+def _composite(r, valid, ts, grid_w, tile_w, tile_h, alpha_clamp, transmittance_eps,
+               ncon=None):
+    """Forward compositing of a batch of tiles ``ts`` [B] from their record
+    windows ``r`` [11, B, L] (``valid`` [B, L] marks real records), by the
+    per-pixel vector identity
 
         Tu_i = exclusive_cumprod(1 - a)_i ;  m_i = Tu_i >= eps
         out = sum_i Tu_i a_i m_i attr_i ;  T = prod_i (1 - a_i m_i)
 
-    over each tile's record window padded to the longest tile, in batches of
-    tiles holding at most ``max_elems`` (pixel, record) entries."""
-    _check(records_cm, tile_start, tile_count, grid_w, grid_h, tile_w, tile_h)
-    dev = records_cm.device
+    or, given the forward's n_contrib ``ncon`` [B, TT], with the include mask
+    m_i = i < ncon.  Returns [B, 6, TT]; differentiable with respect to
+    ``r``."""
     f32 = torch.float32
-    num_tiles = grid_w * grid_h
-    tt = tile_w * tile_h
-    out = torch.zeros((num_tiles, OUT_CHANNELS, tt), dtype=f32, device=dev)
+    pix = torch.arange(tile_w * tile_h, device=r.device)
+    lx, ly = pix % tile_w, pix // tile_w
+    px = ((ts % grid_w) * tile_w)[:, None] + lx[None, :]  # [B, TT]
+    py = ((ts // grid_w) * tile_h)[:, None] + ly[None, :]
+    dx = px.to(f32)[:, :, None] - r[0][:, None, :]  # [B, TT, L]
+    dy = py.to(f32)[:, :, None] - r[1][:, None, :]
+    e = -0.5 * (dx * dx * r[2][:, None, :] + dy * dy * r[5][:, None, :]
+                + dx * dy * (r[3] + r[4])[:, None, :])
+    a = torch.clamp(torch.exp(e) * r[10][:, None, :], max=alpha_clamp)
+    a = torch.where(valid[:, None, :], a, 0.0)
+    om = 1.0 - a
+    tu = torch.cat(
+        [torch.ones_like(om[..., :1]), torch.cumprod(om, dim=-1)[..., :-1]],
+        dim=-1,
+    )
+    if ncon is None:
+        m = tu >= transmittance_eps
+    else:
+        rank = torch.arange(r.shape[2], device=r.device)
+        m = rank[None, None, :] < ncon[:, :, None]
+    m = torch.logical_and(m, valid[:, None, :])
+    w = torch.where(m, tu * a, 0.0)
+    chans = [torch.sum(w * r[row][:, None, :], dim=-1) for row in (6, 7, 8, 9)]
+    chans.append(1.0 - torch.prod(torch.where(m, om, 1.0), dim=-1))
+    chans.append(torch.sum(m, dim=-1).to(f32))
+    return torch.stack(chans, dim=1)
+
+
+def _tile_batches(records_cm, tile_start, tile_count, tt, max_elems):
+    """Yield (tile ids [B], record columns [B, L], valid [B, L]) over all
+    tiles, each tile's window padded to the longest tile, at most
+    ``max_elems`` (pixel, record) entries a batch."""
+    dev = records_cm.device
+    num_tiles = tile_start.shape[0]
     longest = int(tile_count.max()) if num_tiles else 0
     if longest == 0:
-        return out
-    rec = records_cm[:_REC_ROWS]
-    pix = torch.arange(tt, device=dev)
-    lx, ly = pix % tile_w, pix // tile_w
+        return
     j = torch.arange(longest, device=dev)
     batch = max(1, max_elems // (tt * longest))
     for t0 in range(0, num_tiles, batch):
@@ -82,27 +124,53 @@ def raster_fwd_plain(records_cm, tile_start, tile_count, grid_w, grid_h,
         start = tile_start[ts].long()
         valid = j[None, :] < tile_count[ts].long()[:, None]  # [B, L]
         idx = torch.where(valid, start[:, None] + j[None, :], 0)
-        r = rec[:, idx]  # [11, B, L]
-        px = ((ts % grid_w) * tile_w)[:, None] + lx[None, :]  # [B, TT]
-        py = ((ts // grid_w) * tile_h)[:, None] + ly[None, :]
-        dx = px.to(f32)[:, :, None] - r[0][:, None, :]  # [B, TT, L]
-        dy = py.to(f32)[:, :, None] - r[1][:, None, :]
-        e = -0.5 * (dx * dx * r[2][:, None, :] + dy * dy * r[5][:, None, :]
-                    + dx * dy * (r[3] + r[4])[:, None, :])
-        a = torch.clamp(torch.exp(e) * r[10][:, None, :], max=alpha_clamp)
-        a = torch.where(valid[:, None, :], a, 0.0)
-        om = 1.0 - a
-        tu = torch.cat(
-            [torch.ones_like(om[..., :1]), torch.cumprod(om, dim=-1)[..., :-1]],
-            dim=-1,
-        )
-        m = torch.logical_and(tu >= transmittance_eps, valid[:, None, :])
-        w = torch.where(m, tu * a, 0.0)
-        for c, row in enumerate((6, 7, 8, 9)):
-            out[ts, c] = torch.sum(w * r[row][:, None, :], dim=-1)
-        out[ts, 4] = 1.0 - torch.prod(torch.where(m, om, 1.0), dim=-1)
-        out[ts, 5] = torch.sum(m, dim=-1).to(f32)
+        yield ts, idx, valid
+
+
+def raster_fwd_plain(records_cm, tile_start, tile_count, grid_w, grid_h,
+                     tile_w, tile_h, *, alpha_clamp=0.99, transmittance_eps=1e-4,
+                     max_elems=2 ** 24):
+    """Plain torch version of K1 (``_composite`` over batches of tiles)."""
+    _check(records_cm, tile_start, tile_count, grid_w, grid_h, tile_w, tile_h)
+    tt = tile_w * tile_h
+    out = torch.zeros((grid_w * grid_h, OUT_CHANNELS, tt), dtype=torch.float32,
+                      device=records_cm.device)
+    rec = records_cm[:_REC_ROWS].detach()
+    for ts, idx, valid in _tile_batches(records_cm, tile_start, tile_count, tt, max_elems):
+        out[ts] = _composite(rec[:, idx], valid, ts, grid_w, tile_w, tile_h,
+                             alpha_clamp, transmittance_eps)
     return out
+
+
+def raster_bwd_plain(records_cm, tile_start, tile_count, cot_block, grid_w, grid_h,
+                     tile_w, tile_h, *, alpha_clamp=0.99, transmittance_eps=1e-4,
+                     undo_denom_floor=1e-6, max_elems=2 ** 22):
+    """Plain torch version of K3: ``torch.autograd.grad`` of the plain
+    forward with respect to the records, a batch of tiles at a time (each
+    column belongs to one tile, so the batches do not overlap).  The
+    cotangent block ``cot_block`` [T, TT, 8] carries the output cotangents in
+    columns 0-4 and the forward's n_contrib in column 6; as in K3 and the
+    JAX kernel, the recomputed forward takes the records of rank < n_contrib
+    (a recomputed transmittance test could round the other way at the
+    1e-4 threshold).  ``undo_denom_floor`` is not read (1 - a >=
+    1 - alpha_clamp is far above it).  As in K3 and the JAX kernel, records
+    with opacity <= 1e-37 get a zero opacity gradient."""
+    del undo_denom_floor
+    _check(records_cm, tile_start, tile_count, grid_w, grid_h, tile_w, tile_h)
+    tt = tile_w * tile_h
+    grad = torch.zeros_like(records_cm, dtype=torch.float32)
+    rec = records_cm[:_REC_ROWS].detach()
+    for ts, idx, valid in _tile_batches(records_cm, tile_start, tile_count, tt, max_elems):
+        r = rec[:, idx].requires_grad_()
+        with torch.enable_grad():
+            block = cot_block[ts]
+            out = _composite(r, valid, ts, grid_w, tile_w, tile_h, alpha_clamp,
+                             transmittance_eps, ncon=block[:, :, 6])
+            cot = block[:, :, 0:5].transpose(1, 2)
+            (g,) = torch.autograd.grad(out[:, 0:5], r, grad_outputs=cot)
+        grad[:_REC_ROWS, idx[valid]] = g[:, valid]
+    grad[10] = torch.where(rec[10] > 1e-37, grad[10], 0.0)
+    return grad
 
 
 def raster_fwd(records_cm, tile_start, tile_count, grid_w, grid_h, tile_w,
@@ -129,6 +197,71 @@ def raster_fwd(records_cm, tile_start, tile_count, grid_w, grid_h, tile_w,
     return out
 
 
+def raster_bwd(records_cm, tile_start, tile_count, cot_block, grid_w, grid_h,
+               tile_w, tile_h, *, alpha_clamp=0.99, transmittance_eps=1e-4,
+               undo_denom_floor=1e-6):
+    """Per-column gradient rows [16, P] (zero where no tile replays the
+    column) from the cotangent block [num_tiles, TT, 8]."""
+    if records_cm.device.type == "cpu":
+        return raster_bwd_plain(
+            records_cm, tile_start, tile_count, cot_block, grid_w, grid_h,
+            tile_w, tile_h, alpha_clamp=alpha_clamp,
+            transmittance_eps=transmittance_eps, undo_denom_floor=undo_denom_floor,
+        )
+    if records_cm.device.type != "cuda":
+        raise ValueError(f"raster_bwd: unsupported device {records_cm.device}")
+    _check(records_cm, tile_start, tile_count, grid_w, grid_h, tile_w, tile_h)
+    num_tiles = grid_w * grid_h
+    tt = tile_w * tile_h
+    _kernels.check(tt % 32 == 0, f"tile {tile_w}x{tile_h}: the backward needs whole warps")
+    _kernels.check(cot_block.dtype == torch.float32 and cot_block.is_contiguous()
+                   and tuple(cot_block.shape) == (num_tiles, tt, COT_COLS)
+                   and cot_block.device == records_cm.device,
+                   f"cotangent block must be contiguous f32 [{num_tiles}, {tt}, "
+                   f"{COT_COLS}] on {records_cm.device}")
+    grad = torch.zeros((REC_DIM, records_cm.shape[1]), dtype=torch.float32,
+                       device=records_cm.device)
+    with torch.cuda.device(records_cm.device):
+        BWD_KERNEL.launch(
+            records_cm.data_ptr(), records_cm.shape[1], tile_start.data_ptr(),
+            tile_count.data_ptr(), cot_block.data_ptr(), num_tiles, grid_w,
+            tile_w, tile_h, alpha_clamp, undo_denom_floor, grad.data_ptr(),
+            _kernels.stream_of(records_cm),
+        )
+    return grad
+
+
+def cotangent_block(cot_out, alpha_ncon):
+    """[T, 6, TT] output cotangent + the forward's [T, 2, TT] alpha and
+    n_contrib -> the [T, TT, 8] block K3 reads."""
+    pad = torch.zeros_like(alpha_ncon[:, :1])
+    return torch.cat([cot_out[:, 0:5], alpha_ncon, pad], dim=1).transpose(1, 2).contiguous()
+
+
+class _RasterCore(torch.autograd.Function):
+    """K1 forward; K3 backward from the saved records, tile ranges and the
+    forward's alpha and n_contrib.  Only the records are differentiable."""
+
+    @staticmethod
+    def forward(ctx, records_cm, tile_start, tile_count, geom, consts):
+        out = raster_fwd(records_cm, tile_start, tile_count, *geom,
+                         alpha_clamp=consts[0], transmittance_eps=consts[1])
+        ctx.save_for_backward(records_cm, tile_start, tile_count,
+                              out[:, 4:6].contiguous())
+        ctx.geom, ctx.consts = geom, consts
+        return out
+
+    @staticmethod
+    def backward(ctx, cot_out):
+        records_cm, tile_start, tile_count, alpha_ncon = ctx.saved_tensors
+        alpha_clamp, eps, floor = ctx.consts
+        grad = raster_bwd(records_cm, tile_start, tile_count,
+                          cotangent_block(cot_out, alpha_ncon), *ctx.geom,
+                          alpha_clamp=alpha_clamp, transmittance_eps=eps,
+                          undo_denom_floor=floor)
+        return grad, None, None, None, None
+
+
 def _untile(out, grid_w, grid_h, tile_w, tile_h, image_width, image_height):
     """[num_tiles, 6, TT] -> RenderOutputs cropped to the image."""
     x = out.reshape(grid_h, grid_w, OUT_CHANNELS, tile_h, tile_w)
@@ -146,12 +279,17 @@ def _untile(out, grid_w, grid_h, tile_w, tile_h, image_width, image_height):
 
 def rasterize_staged(records_cm, tile_start, tile_count, image_width,
                      image_height, tile_w, tile_h, *, alpha_clamp=0.99,
-                     transmittance_eps=1e-4) -> RenderOutputs:
-    """Rasterize a staged sorted-order record buffer (forward only)."""
+                     transmittance_eps=1e-4, undo_denom_floor=1e-6) -> RenderOutputs:
+    """Rasterize a staged sorted-order record buffer; differentiable with
+    respect to ``records_cm`` when it requires grad (K1 forward, K3
+    backward)."""
     grid_w = -(-image_width // tile_w)
     grid_h = -(-image_height // tile_h)
-    out = raster_fwd(
-        records_cm, tile_start, tile_count, grid_w, grid_h, tile_w, tile_h,
-        alpha_clamp=alpha_clamp, transmittance_eps=transmittance_eps,
-    )
+    geom = (grid_w, grid_h, tile_w, tile_h)
+    if records_cm.requires_grad and torch.is_grad_enabled():
+        out = _RasterCore.apply(records_cm, tile_start, tile_count, geom,
+                                (alpha_clamp, transmittance_eps, undo_denom_floor))
+    else:
+        out = raster_fwd(records_cm, tile_start, tile_count, *geom,
+                         alpha_clamp=alpha_clamp, transmittance_eps=transmittance_eps)
     return _untile(out, grid_w, grid_h, tile_w, tile_h, image_width, image_height)

@@ -1,6 +1,6 @@
-"""Sorted-order pair staging for the inference renderer (torch counterpart of
-the JAX package's ``ops/staging.py``: ``StagingStatic``, ``SortedPairs``,
-``_sorted_pairs`` and ``stage_pairs_sorted``).
+"""Sorted-order pair staging (torch counterpart of the JAX package's
+``ops/staging.py``: ``StagingStatic``, ``SortedPairs``, ``_sorted_pairs``,
+``stage_pairs_sorted`` for inference and ``stage_pairs_train`` for training).
 
 Payload carriage, as the JAX package runs by default:
 
@@ -10,7 +10,12 @@ Payload carriage, as the JAX package runs by default:
     2. ONE stable sort on (tile, depth) orders the pairs; the record rows are
        carried through it by the sort's permutation.
     3. Per-tile ranges by searchsorted.  No chunk-aligned relayout: the
-       compositing kernel reads unaligned tile starts.
+       compositing kernels read unaligned tile starts.
+
+Training staging is a ``torch.autograd.Function`` around the same index
+machinery: the forward also keeps the sorted gaussian id of every record
+column, and the backward is the per-Gaussian segment sum of the record
+cotangent (``segsum_cuda``, kernel K4); the sort is never differentiated.
 
 The (tile, depth) sort is one ``torch.sort(stable=True)`` of the int64 key
 ``tile << 32 | f32_bits(depth)``.  It gives exactly the permutation of the
@@ -27,10 +32,11 @@ from typing import NamedTuple
 import torch
 
 from . import binning as binning_mod
-from . import merge_cuda
+from . import merge_cuda, segsum_cuda
 from .rasterize_cuda import REC_DIM
 
-# packed [N, 11] reference layout -> kernel record layout (depth/op swapped).
+# packed [N, 11] reference layout -> kernel record layout (depth/op swapped);
+# an involution, so it also maps kernel-layout gradients back.
 _PERM = (0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 9)
 
 
@@ -46,7 +52,9 @@ class StagingStatic(NamedTuple):
 
 
 class SortedPairs(NamedTuple):
-    records_cm: torch.Tensor  # [16, max_pairs + chunk] sorted-order records
+    # [16, max_pairs + pad] sorted-order records: pad is ``chunk`` for
+    # inference staging and ``_train_pad`` for training staging.
+    records_cm: torch.Tensor
     tile_start: torch.Tensor  # [num_tiles] int32 raw (unaligned) starts
     tile_count: torch.Tensor  # [num_tiles] int32
     num_pairs: torch.Tensor  # [] int32
@@ -95,8 +103,9 @@ def merge_table(st: StagingStatic, packed, rect_min, rect_max, radii, depths):
 
 def _sorted_pairs(st: StagingStatic, packed, rect_min, rect_max, radii, depths):
     """Merge-gather + (tile, depth) sort.  Returns (the 11 kernel-layout
-    record rows in sorted order [11, max_pairs], tile_start, tile_count,
-    expansion)."""
+    record rows in sorted order [11, max_pairs], the sorted gaussian id
+    [max_pairs] int32 with ``num_rec`` on slots past the last pair,
+    tile_start, tile_count, expansion)."""
     dev = packed.device
     f32 = torch.float32
     grid_w = -(-st.image_width // st.tile_w)
@@ -123,12 +132,14 @@ def _sorted_pairs(st: StagingStatic, packed, rect_min, rect_max, radii, depths):
     # Record row 9 (depth) equals the depth key on valid lanes; invalid lanes
     # (key +inf, stably at the tail) get exact zeros.
     rec_rows[9] = torch.where(valid, sorted_depth, torch.zeros((), dtype=f32, device=dev))
+    gid = torch.where(valid, g[5][perm].to(i32),
+                      torch.full((), packed.shape[0], dtype=i32, device=dev))
 
     # --- 3. tile ranges -----------------------------------------------------
     tile_iota = torch.arange(num_tiles, dtype=i32, device=dev)
     tile_start = torch.searchsorted(sorted_tile, tile_iota, side="left").to(i32)
     tile_end = torch.searchsorted(sorted_tile, tile_iota, side="right").to(i32)
-    return rec_rows, tile_start, tile_end - tile_start, e
+    return rec_rows, gid, tile_start, tile_end - tile_start, e
 
 
 def stage_pairs_sorted(st: StagingStatic, packed, rect_min, rect_max, radii,
@@ -139,7 +150,7 @@ def stage_pairs_sorted(st: StagingStatic, packed, rect_min, rect_max, radii,
     [16, max_pairs + chunk] in kernel layout (rows 11-15 and the trailing
     ``chunk`` columns zero), the JAX package's exact layout.  Forward only.
     """
-    rec_rows, tile_start, tile_count, e = _sorted_pairs(
+    rec_rows, _, tile_start, tile_count, e = _sorted_pairs(
         st, packed, rect_min, rect_max, radii, depths
     )
     records_cm = torch.zeros(
@@ -154,3 +165,77 @@ def stage_pairs_sorted(st: StagingStatic, packed, rect_min, rect_max, radii,
         overflow_gaussians=e.overflow_gaussians,
         overflow_pairs=e.overflow_pairs,
     )
+
+
+def _train_pad(st: StagingStatic) -> int:
+    """Zero columns after ``max_pairs`` in the training buffer: at least
+    ``chunk``, with the total rounded up to a multiple of 512 (the JAX
+    package's layout, kept so that the two buffers compare column for
+    column)."""
+    base = st.max_pairs + st.chunk
+    return -(-base // 512) * 512 - st.max_pairs
+
+
+def reduce_record_cotangent(g_cm: torch.Tensor, gid: torch.Tensor,
+                            num_rec: int) -> torch.Tensor:
+    """d packed [num_rec, 11] from the record-buffer cotangent [16, P] and the
+    per-column gaussian id [P] (``num_rec`` = no gaussian): the per-Gaussian
+    segment sum (K4, which also copies row 3 into row 4: both conic
+    off-diagonals get d_cs), then kernel layout -> packed layout."""
+    grad_rec = segsum_cuda.segment_reduce(g_cm, gid, num_rec)  # [N, 16]
+    return grad_rec[:, list(_PERM)]
+
+
+def _stage_train_impl(st: StagingStatic, packed, rect_min, rect_max, radii,
+                      depths):
+    """Training staging without autograd: (SortedPairs with the
+    [16, max_pairs + _train_pad] buffer, gid_full [max_pairs + _train_pad]
+    int32 with ``num_rec`` on columns of no gaussian)."""
+    rec_rows, gid, tile_start, tile_count, e = _sorted_pairs(
+        st, packed, rect_min, rect_max, radii, depths
+    )
+    dev = packed.device
+    pad = _train_pad(st)
+    records_cm = torch.zeros((REC_DIM, st.max_pairs + pad), dtype=torch.float32, device=dev)
+    records_cm[:11, :st.max_pairs] = rec_rows
+    gid_full = torch.cat(
+        [gid, torch.full((pad,), packed.shape[0], dtype=torch.int32, device=dev)])
+    staged = SortedPairs(
+        records_cm=records_cm,
+        tile_start=tile_start,
+        tile_count=tile_count,
+        num_pairs=e.num_pairs,
+        overflow_gaussians=e.overflow_gaussians,
+        overflow_pairs=e.overflow_pairs,
+    )
+    return staged, gid_full
+
+
+class _StageTrain(torch.autograd.Function):
+    """Training staging.  Forward: ``_stage_train_impl``; backward:
+    ``reduce_record_cotangent``.  Only ``packed`` is differentiable: rects,
+    radii and depths are staging machinery."""
+
+    @staticmethod
+    def forward(ctx, st, packed, rect_min, rect_max, radii, depths):
+        staged, gid_full = _stage_train_impl(
+            st, packed.detach(), rect_min, rect_max, radii, depths)
+        ctx.save_for_backward(gid_full)
+        ctx.num_rec = packed.shape[0]
+        ctx.mark_non_differentiable(*staged[1:])
+        return tuple(staged)
+
+    @staticmethod
+    def backward(ctx, g_records, *_):
+        (gid_full,) = ctx.saved_tensors
+        d_packed = reduce_record_cotangent(g_records.contiguous(), gid_full, ctx.num_rec)
+        return None, d_packed, None, None, None, None
+
+
+def stage_pairs_train(st: StagingStatic, packed, rect_min, rect_max, radii,
+                      depths) -> SortedPairs:
+    """Training staging: records in sorted pair order, no aligned relayout,
+    differentiable with respect to ``packed`` [N, 11] (reference layout).
+    The buffer is [16, max_pairs + _train_pad(st)] in kernel layout, the JAX
+    package's ``stage_pairs_train`` layout."""
+    return SortedPairs(*_StageTrain.apply(st, packed, rect_min, rect_max, radii, depths))

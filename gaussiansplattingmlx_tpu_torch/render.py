@@ -1,13 +1,17 @@
-"""Render: projection -> pair staging -> forward compositing (torch counterpart
-of the JAX package's ``render.py``, inference path).
+"""Render: projection -> pair staging -> compositing (torch counterpart of
+the JAX package's ``render.py``, the fused sorted-order paths).
 
 ``render(..., inference=True)`` is the serving path: sorted-order staging
 with the merge-gather kernel, then the forward compositing kernel over
-unaligned tile ranges.  Training (``inference=False``) is not ported yet.
+unaligned tile ranges, all without gradients.  ``inference=False`` is the
+training path: the same staging as a differentiable ``autograd.Function``
+whose backward is the per-Gaussian segment sum, and the rasterizer's
+``autograd.Function`` (forward compositing, backward compositing).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -42,19 +46,24 @@ def render(
     sh_degree: int,
     raster_cfg: RasterizerConfig = RasterizerConfig(),
     white_background: bool = False,
+    pixel_y_offset=None,
+    full_image_height: int | None = None,
+    active: torch.Tensor | None = None,
     inference: bool = False,
 ):
-    """Render one view on the device of ``means3d``.
+    """Render one view on the device of ``means3d``.  ``active`` [N]
+    (optional) culls rows with active <= 0 in the projection.
 
     Returns (RenderOutputs with the background applied to color, RenderAux).
     """
-    if not inference:
+    if pixel_y_offset is not None or full_image_height is not None:
         raise NotImplementedError(
-            "training render (inference=False) is not ported yet: see ROADMAP.md "
-            "queue A, 'projection backward and staging autograd.Function'"
+            "pixel-band rendering (pixel_y_offset, full_image_height) belongs to "
+            "the band-sharded train step, not ported yet: see ROADMAP.md queue A.7"
         )
     cfg = raster_cfg
-    with torch.no_grad():
+    grad_ctx = torch.no_grad() if inference else contextlib.nullcontext()
+    with grad_ctx:
         p = projection.project_gaussians(
             means3d, scales, rotations, shs, view, proj, camera_center,
             fov_x, fov_y, focal_x, focal_y, image_width, image_height, sh_degree,
@@ -64,6 +73,7 @@ def render(
             cov2d_dilation=cfg.cov2d_dilation,
             radius_eigen_eps=cfg.radius_eigen_eps,
             quat_norm_eps=cfg.quat_norm_eps,
+            active=active,
         )
         packed = rasterize_ref.pack_gaussians(
             p.means2d, p.conic, p.colors, opacity, p.depths
@@ -76,14 +86,14 @@ def render(
             max_pairs=cfg.max_pairs,
             chunk=cfg.chunk_size,
         )
-        staged = staging_mod.stage_pairs_sorted(
-            sst, packed, p.rect_min, p.rect_max, p.radii, p.depths
-        )
+        stage = staging_mod.stage_pairs_sorted if inference else staging_mod.stage_pairs_train
+        staged = stage(sst, packed, p.rect_min, p.rect_max, p.radii, p.depths)
         out = rasterize_cuda.rasterize_staged(
             staged.records_cm, staged.tile_start, staged.tile_count,
             image_width, image_height, cfg.tile_w, cfg.tile_h,
             alpha_clamp=cfg.alpha_clamp,
             transmittance_eps=cfg.transmittance_eps,
+            undo_denom_floor=cfg.undo_denom_floor,
         )
         out = out._replace(color=rasterize_ref.apply_background(
             out.color, out.alpha, white_background))

@@ -102,5 +102,7 @@ def eval_sh(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 
 
 def sh_to_color(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
-    """Kernel semantics: eval, +0.5, clamp at zero."""
-    return torch.clamp(eval_sh(degree, sh, dirs) + 0.5, min=0.0)
+    """Kernel semantics: eval, +0.5, clamp at zero (``torch.maximum``: a tie
+    at zero splits the gradient in half, as JAX's ``maximum`` does)."""
+    c = eval_sh(degree, sh, dirs) + 0.5
+    return torch.maximum(c, torch.zeros((), dtype=c.dtype, device=c.device))

@@ -26,11 +26,22 @@ from gaussiansplattingmlx_tpu_torch.utils import camera, sh, transforms
 REPO = Path(__file__).resolve().parent.parent
 
 
-def test_rasterizer_config_matches_jax():
+@pytest.mark.parametrize("name", [
+    "RasterizerConfig", "ModelConfig", "OptimizerConfig", "DensifyConfig",
+    "LossConfig", "CameraConfig", "ParallelConfig", "TrainConfig",
+])
+def test_rasterizer_config_matches_jax(name):
+    """Every config dataclass of the port has the JAX package's fields,
+    annotations and defaults (nested configs: the same default factory)."""
     def fields(cls):
-        return [(f.name, f.type, f.default) for f in dataclasses.fields(cls)]
+        return [(f.name, f.type, f.default,
+                 f.default_factory().__class__.__name__
+                 if f.default_factory is not dataclasses.MISSING else None)
+                for f in dataclasses.fields(cls)]
 
-    assert fields(config.RasterizerConfig) == fields(jax_config.RasterizerConfig)
+    assert fields(getattr(config, name)) == fields(getattr(jax_config, name))
+    assert (dataclasses.asdict(getattr(config, name)())
+            == dataclasses.asdict(getattr(jax_config, name)()))
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -167,3 +167,102 @@ def test_projection_full_f32_with_tf32_allowed():
         np.testing.assert_allclose(to_numpy(getattr(gpu, name)), to_numpy(getattr(cpu, name)),
                                    rtol=1e-5, atol=1e-5, err_msg=name)
     np.testing.assert_array_equal(to_numpy(gpu.radii), to_numpy(cpu.radii))
+
+
+def _train_staged(n, seed, width, height, tile, max_pairs, device):
+    """Training staging of a scene with a random output cotangent block:
+    (static, staged, cotangent block)."""
+    from gaussiansplattingmlx_tpu_torch.ops import staging as st_mod
+
+    st, args, _ = _staged(n, seed, width, height, tile, max_pairs, device)
+    sp, gid = st_mod._stage_train_impl(st, *args)
+    grid_w, grid_h = -(-width // tile), -(-height // tile)
+    fwd = rasterize_cuda.raster_fwd(sp.records_cm, sp.tile_start, sp.tile_count,
+                                    grid_w, grid_h, tile, tile)
+    gen = torch.Generator().manual_seed(seed)
+    cot = torch.randn(fwd.shape, generator=gen).to(device)
+    return st, sp, gid, rasterize_cuda.cotangent_block(cot, fwd[:, 4:6])
+
+
+def _assert_rows_close(got, want, rtol=2e-3, atol=2e-4):
+    """The JAX package's Pallas-vs-oracle gradient tolerance, atol scaled by
+    each row's largest magnitude."""
+    for r in range(want.shape[0]):
+        scale = max(float(want[r].abs().max()), 1e-30)
+        torch.testing.assert_close(got[r], want[r], rtol=rtol, atol=atol * scale)
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+def test_raster_bwd_kernel_matches_plain(tile):
+    require_cuda()
+    width, height = 100, 72
+    st, sp, _, block = _train_staged(300, 13, width, height, tile, 8192, "cuda")
+    grid_w, grid_h = -(-width // tile), -(-height // tile)
+    args = (sp.records_cm, sp.tile_start, sp.tile_count, block, grid_w, grid_h, tile, tile)
+    before = rasterize_cuda.BWD_KERNEL.launches
+    got = rasterize_cuda.raster_bwd(*args)
+    again = rasterize_cuda.raster_bwd(*args)
+    torch.cuda.synchronize()
+    assert rasterize_cuda.BWD_KERNEL.launches == before + 2
+    assert _bit_equal(got, again), "two launches differ"
+    want = rasterize_cuda.raster_bwd_plain(*args)
+    assert bool(torch.isfinite(got).all())
+    _assert_rows_close(got, want)
+    assert bool((got[11:] == 0).all()) and torch.equal(got[3], got[4])
+
+
+def test_segsum_kernel_matches_plain():
+    require_cuda()
+    from gaussiansplattingmlx_tpu_torch.ops import segsum_cuda
+
+    _, sp, gid, _ = _train_staged(300, 7, 100, 72, 16, 8192, "cuda")
+    gen = torch.Generator().manual_seed(3)
+    rows = torch.randn((16, gid.shape[0]), generator=gen).cuda()
+    rows_s, offsets = segsum_cuda.sort_by_gid(rows, gid, 300)
+    before = segsum_cuda.KERNEL.launches
+    got = segsum_cuda.segment_sum_sorted(rows_s, offsets)
+    again = segsum_cuda.segment_sum_sorted(rows_s, offsets)
+    torch.cuda.synchronize()
+    assert segsum_cuda.KERNEL.launches == before + 2
+    assert _bit_equal(got, again), "two launches differ"
+    want = segsum_cuda.segment_sum_sorted_plain(rows_s, offsets)
+    # Another summation order than index_add_'s: rtol 1e-5, atol 1e-6 of
+    # the largest sum for segments that cancel.
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
+    assert torch.equal(got[:, 4], got[:, 3]) and bool((got[:, 11:] == 0).all())
+
+
+def test_train_step_card_matches_cpu():
+    """One training step from the same state on the card (K1-K4) and on the
+    CPU (their plain versions): the same loss and, where the gradient is
+    not tiny, the same updated parameters."""
+    require_cuda()
+    from gaussiansplattingmlx_tpu_torch import config
+    from gaussiansplattingmlx_tpu_torch.data.dataset import TrainData
+    from gaussiansplattingmlx_tpu_torch.train import trainer
+
+    params, c2w = scene_numpy(n=300, seed=5, sh_degree=3, sh_rest_scale=0.1)
+    images = np.random.default_rng(1).uniform(size=(1, 72, 100, 3)).astype(np.float32)
+    data = TrainData([Camera.from_c2w(100, 72, 60.0, 60.0, c2w)], images)
+    cfg = config.TrainConfig(iterations=10, model=config.ModelConfig(sh_degree=3),
+                             raster=config.RasterizerConfig(max_pairs=8192))
+    raw = {f"param_{k}": v for k, v in params.items()}
+    raw.update({f"adam_{m}_{k}": np.zeros_like(v) for k, v in params.items() for m in "mv"})
+    raw.update(adam_count=0, num_active=300, grad_accum=np.zeros(300), grad_denom=0.0,
+               step=0, overflow_acc=np.zeros(2))
+    results = []
+    for device in ("cpu", "cuda"):
+        state = trainer.state_from_numpy(raw, device)
+        step = trainer.make_train_step(cfg, 100, 72, 3, 10)
+        state, metrics, _ = step(state, trainer.stack_views(data, device), 0)
+        results.append((state, {k: float(v) for k, v in metrics.items()}))
+    (cs, cm), (gs, gm) = results
+    assert gm["num_pairs"] == cm["num_pairs"] > 0 and gm["overflow_pairs"] == 0
+    np.testing.assert_allclose(gm["loss"], cm["loss"], rtol=1e-4)
+    assert gm["grad_coverage"] > 0
+    for name in ("xyz", "features_dc", "scales", "opacity"):
+        g = 10.0 * cs.m[name]  # m = 0.1 g after one step
+        big = (g.abs() > 1e-3 * g.abs().max()).numpy()
+        got = to_numpy(getattr(gs.params, name))
+        want = to_numpy(getattr(cs.params, name))
+        np.testing.assert_allclose(got[big], want[big], rtol=1e-5, atol=1e-7, err_msg=name)

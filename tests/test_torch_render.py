@@ -72,14 +72,17 @@ def test_render_inference_matches_jax(seed, sh_degree, white):
 
 
 def test_render_training_path_not_ported():
+    """The training render itself is ported (tests/test_torch_train_*.py);
+    its pixel-band form, used only by the band-sharded step, is not."""
     params, c2w = scene_numpy(n=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A.7"):
         gp = params_from_numpy(params, "cpu")
         means, shs, opacity, scales, rots = activations(gp)
         t = Camera.from_c2w(W, H, FOCAL, FOCAL, c2w).tensors()
         render(means, shs, opacity, scales, rots, to_torch(t["view"]),
                to_torch(t["proj"]), to_torch(t["camera_center"]), t["fov_x"],
-               t["fov_y"], t["focal_x"], t["focal_y"], W, H, 0)
+               t["fov_y"], t["focal_x"], t["focal_y"], W, H // 2, 0,
+               pixel_y_offset=H // 2, full_image_height=H)
 
 
 def test_render_cli_cpu_writes_pngs(tmp_path):
