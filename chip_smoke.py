@@ -13,10 +13,17 @@ and checks each against its plain PyTorch version at the shapes of its path:
   plus a 16-frame throughput loop;
 * K3 backward compositing and K4 per-Gaussian segment sum on the training
   buffers of the bench camera (the cotangent of the real L1 + SSIM loss),
-  K3 also at tile 32 on a small scene; then the training path through its
-  entry point (``train.trainer.Trainer.run``): 20 steps at 800x800, SH3,
-  tile 32, from a 100,000-point cloud of the bench scene, against targets
-  rendered by the port from 4 orbit views.
+  K3 also at tile 32 on a small scene; K5 merge ranks, K6 relayout and K7
+  aligned backward on the same camera's split-layout ranks and aligned
+  buffers; then the training path through its entry point
+  (``train.trainer.Trainer.run``): 20 steps at 800x800, SH3, tile 32, from
+  a 100,000-point cloud of the bench scene, against targets rendered by the
+  port from 4 orbit views, in the default sorted layout and again in each
+  non-default layout (``train_staging="aligned"``: K6 and K7;
+  ``staging="split"``: K5 and K7), each kernel first checked on that run's
+  own first-step buffers and the layouts' losses held to the sorted run's;
+* the split layout's serving path: ``render_many`` over 16 orbit frames of
+  the bench scene with ``RasterizerConfig(staging="split")``.
 
 Each main path runs with every launch counter set to 0 just before it and
 read just after.  Every phase prints one line; any failure raises and exits
@@ -77,6 +84,10 @@ F32_OPS_PER_S = 67e12
 # 4, cotangent dot 7, dl/da 5, suffix sum 2, the ten gradient terms ~19, and
 # one add per term into the pixel sum 10).  K4: one add per live row entry.
 K1_OPS, K3_OPS = 24, 60
+# The training runs' losses in the aligned and split layouts against the
+# sorted run's (the CPU tests' step-parity tolerance).
+LOSS_RTOL = 1e-4
+SPLIT_FRAMES = 16
 
 
 class SmokeFailure(RuntimeError):
@@ -110,6 +121,18 @@ def cuda_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def timed_once(fn):
+    """(fn(), its milliseconds on CUDA events) from one run: for plain
+    versions too slow to repeat."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -180,9 +203,6 @@ def bench_geometry(ply_path: Path, device):
 
 def check_merge(args, st, device):
     from gaussiansplattingmlx_tpu_torch.ops import binning, merge_cuda, staging
-
-    def bit_equal(a, b):
-        return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
     with torch.no_grad():
         e, tbl = staging.merge_table(st, *args)
@@ -439,6 +459,134 @@ def check_segsum(gid, rows, num_rec):
             "library_ms": library_ms}
 
 
+def bit_equal(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def check_merge_ranks(args, st):
+    """K5 against its plain version on the bench camera's compacted cumsum
+    at the serving budget, bit for bit; torch.searchsorted as the
+    yardstick."""
+    from gaussiansplattingmlx_tpu_torch.ops import binning, merge_cuda
+
+    packed, rect_min, rect_max, radii, _ = args
+    with torch.no_grad():
+        e = binning.expand_pairs(rect_min, rect_max, radii, st.image_width, st.image_height,
+                                 st.tile_w, st.tile_h, st.max_pairs)
+    cum, max_pairs = e.cum_keep, st.max_pairs
+    got = merge_cuda.merge_ranks(cum, max_pairs)
+    want = merge_cuda.merge_ranks_plain(cum, max_pairs)
+    slots = torch.arange(max_pairs, dtype=torch.int32, device=cum.device)
+    library = torch.searchsorted(cum, slots, right=True, out_int32=True)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "merge_ranks kernel != plain on the bench camera")
+    require(torch.equal(got, library), "merge_ranks kernel != torch.searchsorted")
+    ms = cuda_ms(lambda: merge_cuda.merge_ranks(cum, max_pairs))
+    plain_ms = cuda_ms(lambda: merge_cuda.merge_ranks_plain(cum, max_pairs))
+    library_ms = cuda_ms(lambda: torch.searchsorted(cum, slots, right=True, out_int32=True))
+    # About log2(n) integer compares per slot: the bytes bound it (cum read
+    # once, the ranks written once).
+    lim = bound(4.0 * (cum.numel() + max_pairs), 0.0)
+    print(f"merge_ranks: bit-exact vs plain and torch.searchsorted on {cum.numel()} "
+          f"gaussians x {max_pairs} slots; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.searchsorted {library_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms "
+          f"({lim['bound_by']})", flush=True)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **lim,
+            "library_ms": library_ms}
+
+
+def relayout_inputs(args, st):
+    """The aligned staging's inputs to K6: (sorted records + gid row [12,
+    max_pairs], tile_start, tile_count, owner, rank0, num_aligned, pairs)."""
+    from gaussiansplattingmlx_tpu_torch.ops import rasterize_cuda, staging
+
+    with torch.no_grad():
+        rec_rows, gid, start, count, e = staging._sorted_pairs(st, *args)
+    require(int(e.overflow_pairs) == 0, "aligned staging must not overflow")
+    num_aligned = staging._num_aligned(st)
+    _, owner, rank0 = rasterize_cuda.aligned_chunk_plan(count, st.chunk, num_aligned)
+    sorted_cm = torch.cat([rec_rows, gid.to(torch.float32)[None]]).contiguous()
+    return (sorted_cm, start, count, owner, rank0, st.chunk, num_aligned), int(e.num_pairs)
+
+
+def check_relayout(args, st, what, timed=True):
+    """K6 against its plain version, bit for bit (rows 0-11, row 11 the
+    gaussian id as a float value, and the zero columns)."""
+    from gaussiansplattingmlx_tpu_torch.ops import relayout_cuda
+
+    rargs, pairs = relayout_inputs(args, st)
+    got = relayout_cuda.relayout(*rargs)
+    want = relayout_cuda.relayout_plain(*rargs)
+    torch.cuda.synchronize()
+    require(bit_equal(got, want), f"relayout kernel != plain ({what})")
+    require(bool((got[12:] == 0).all()), f"relayout rows 12-15 not zero ({what})")
+    num_aligned = rargs[-1]
+    line = (f"relayout: bit-exact vs plain on {pairs} pairs into {num_aligned} aligned "
+            f"columns ({what}, chunk {st.chunk})")
+    if not timed:
+        print(line, flush=True)
+        return None
+    ms = cuda_ms(lambda: relayout_cuda.relayout(*rargs))
+    plain_ms = cuda_ms(lambda: relayout_cuda.relayout_plain(*rargs))
+    rows, nchunks, ntiles = rargs[0].shape[0], rargs[3].numel(), rargs[1].numel()
+    # Bytes: the copied columns' rows read once, the [16, num_aligned]
+    # output written once, the chunk plan and tile ranges read once.
+    lim = bound(4.0 * (rows * pairs + 16 * num_aligned + 2 * nchunks + 2 * ntiles), 0.0)
+    print(f"{line}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})", flush=True)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None}
+
+
+def check_raster_bwd_aligned(records_cm, aligned_start, tile_count, tile, chunk, target,
+                             what, timed=False):
+    """K7 against its plain version on an aligned record buffer with the
+    cotangent of L1 + SSIM against ``target``: within tolerance,
+    bit-identical over two launches, and bit-equal to K3 run over the same
+    buffer with the aligned starts (the two share their device code).  With
+    ``timed``, returns the kernel line's entry, K3's time on the same buffer
+    printed beside it."""
+    from gaussiansplattingmlx_tpu_torch.ops import rasterize_cuda
+
+    grid_w, grid_h = -(-WIDTH // tile), -(-HEIGHT // tile)
+    block, _ = loss_cotangent_block(records_cm, aligned_start, tile_count, WIDTH, HEIGHT,
+                                    tile, target)
+    bargs = (records_cm, aligned_start, tile_count, block, grid_w, grid_h, tile, tile)
+    got = rasterize_cuda.raster_bwd_aligned(*bargs, chunk)
+    again = rasterize_cuda.raster_bwd_aligned(*bargs, chunk)
+    k3 = rasterize_cuda.raster_bwd(*bargs)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all()), f"raster_bwd_aligned output not finite ({what})")
+    require(bit_equal(got, again), f"raster_bwd_aligned: two launches differ ({what})")
+    require(bit_equal(got, k3), f"raster_bwd_aligned != raster_bwd on the same buffer ({what})")
+    del again, k3
+    want, plain_ms = timed_once(lambda: rasterize_cuda.raster_bwd_plain(*bargs))
+    assert_rows_close(got, want, f"raster_bwd_aligned ({what})")
+    err = float((got - want).abs().max())
+    del want
+    line = (f"raster_bwd_aligned: within rtol {GRAD_RTOL} / scaled atol {GRAD_ATOL} of plain "
+            f"on {int(tile_count.sum())} pairs in {got.shape[1]} aligned columns ({what}, "
+            f"tile {tile}, chunk {chunk}, L1+SSIM cotangent; max abs err {err:.3g}); "
+            f"bit-identical repeats; bit-equal to raster_bwd on the same buffer")
+    if not timed:
+        print(line, flush=True)
+        return None
+    ms = cuda_ms(lambda: rasterize_cuda.raster_bwd_aligned(*bargs, chunk))
+    k3_ms = cuda_ms(lambda: rasterize_cuda.raster_bwd(*bargs))
+    ncon = block[:, :, 6]
+    taken = float(ncon.sum())
+    replayed = int(torch.minimum(ncon.max(dim=1).values.to(torch.int32), tile_count).sum())
+    # As K3's bound: 11 record rows of every replayed pair, the cotangent
+    # block, tile ranges and the whole [16, P] output; 60 operations per
+    # pixel-record taken.
+    lim = bound(4.0 * (11 * replayed + block.numel() + 2 * grid_w * grid_h + got.numel()),
+                K3_OPS * taken)
+    print(f"{line}; kernel {ms:.4f} ms (raster_bwd on the same buffer {k3_ms:.4f} ms), "
+          f"plain {plain_ms:.4f} ms (one run), bound {lim['bound_ms']:.4f} ms "
+          f"({lim['bound_by']}, {taken:.0f} pixel-records, {replayed} pairs replayed)",
+          flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None}
+
+
 def orbit_targets(ply_path: Path, device):
     """The training data: TRAIN_VIEWS orbit cameras (render_cli's orbit) and
     the port's own inference renders of the bench scene as targets."""
@@ -470,17 +618,12 @@ def orbit_targets(ply_path: Path, device):
     return TrainData(cameras=cams, images=np.stack(images).astype(np.float32))
 
 
-def training_setup(ply_path: Path, data, device):
+def make_trainer(ply_path: Path, data, device, **layout):
     """A Trainer at the bench workload (100,000 points of the bench scene,
-    their colours, SH3, 800x800, tile TRAIN_TILE), its pair budget set from
-    a probe of every view at the initial parameters with 2x headroom: 20
-    Adam steps can grow the Gaussians' footprints, and no step may
-    overflow."""
+    their colours, SH3, 800x800, tile TRAIN_TILE) in the record layout that
+    ``layout`` selects (RasterizerConfig fields; none: the default)."""
     from gaussiansplattingmlx_tpu_torch import config
     from gaussiansplattingmlx_tpu_torch.data import ply
-    from gaussiansplattingmlx_tpu_torch.models import gaussians
-    from gaussiansplattingmlx_tpu_torch.ops import binning, projection
-    from gaussiansplattingmlx_tpu_torch.render import render
     from gaussiansplattingmlx_tpu_torch.train.trainer import Trainer
     from gaussiansplattingmlx_tpu_torch.utils import sh
     from gaussiansplattingmlx_tpu_torch.utils.point_cloud import PointCloud
@@ -491,12 +634,23 @@ def training_setup(ply_path: Path, data, device):
     cfg = config.TrainConfig(
         iterations=TRAIN_STEPS, init_points=N_GAUSSIANS, log_interval=5,
         output_dir="", seed=SEED, model=config.ModelConfig(sh_degree=SH_DEGREE),
-        raster=config.RasterizerConfig(tile_w=TRAIN_TILE, tile_h=TRAIN_TILE),
+        raster=config.RasterizerConfig(tile_w=TRAIN_TILE, tile_h=TRAIN_TILE, **layout),
         densify=config.DensifyConfig(from_iter=10 ** 9),
     )
-    trainer = Trainer(cfg, data, pc, device=device)
+    return Trainer(cfg, data, pc, device=device)
+
+
+def training_setup(ply_path: Path, data, device):
+    """The default-layout Trainer, its pair budget set from a probe of every
+    view at the initial parameters with 2x headroom: 20 Adam steps can grow
+    the Gaussians' footprints, and no step may overflow."""
+    from gaussiansplattingmlx_tpu_torch.models import gaussians
+    from gaussiansplattingmlx_tpu_torch.ops import binning, projection
+    from gaussiansplattingmlx_tpu_torch.render import render
+
+    trainer = make_trainer(ply_path, data, device)
     state = trainer.state
-    probe = dataclasses.replace(cfg.raster, max_pairs=cfg.raster.max_pairs_limit)
+    probe = dataclasses.replace(trainer.cfg.raster, max_pairs=trainer.cfg.raster.max_pairs_limit)
     peak = peak16 = 0
     with torch.no_grad():
         active = gaussians.active_mask(state.params.capacity, state.num_active)
@@ -517,17 +671,13 @@ def training_setup(ply_path: Path, data, device):
     return trainer, peak, peak16
 
 
-def check_training_buffers(trainer, device):
-    """K2, K1, K3 and K4 against their plain versions on the buffers of the
-    training run's first step: its tile and pair budget, the initial
-    parameters, view 0 and the L1 + SSIM cotangent against its target."""
+def first_step_geometry(trainer):
+    """The staging inputs of the training run's first step (initial
+    parameters, view 0) and the staging statics of its config."""
     from gaussiansplattingmlx_tpu_torch.models import gaussians
-    from gaussiansplattingmlx_tpu_torch.ops import (
-        merge_cuda, projection, rasterize_cuda, rasterize_ref, segsum_cuda, staging,
-    )
+    from gaussiansplattingmlx_tpu_torch.ops import projection, rasterize_ref, staging
 
-    cfg = trainer.cfg.raster
-    state, views = trainer.state, trainer.views
+    cfg, state, views = trainer.cfg.raster, trainer.state, trainer.views
     cam = [views[k][0] for k in ("view", "proj", "camera_center", "fov_x", "fov_y",
                                  "focal_x", "focal_y")]
     with torch.no_grad():
@@ -536,9 +686,61 @@ def check_training_buffers(trainer, device):
         p = projection.project_gaussians(means, scales, rots, shs, *cam, WIDTH, HEIGHT,
                                          SH_DEGREE, active=active)
         packed = rasterize_ref.pack_gaussians(p.means2d, p.conic, p.colors, opacity, p.depths)
-        args = (packed, p.rect_min, p.rect_max, p.radii, p.depths)
-        st = staging.StagingStatic(WIDTH, HEIGHT, cfg.tile_w, cfg.tile_h, cfg.max_pairs,
-                                   cfg.chunk_size)
+    st = staging.StagingStatic(WIDTH, HEIGHT, cfg.tile_w, cfg.tile_h, cfg.max_pairs,
+                               cfg.chunk_size)
+    return (packed, p.rect_min, p.rect_max, p.radii, p.depths), st
+
+
+def check_layout_buffers(trainer, layout):
+    """The first step's buffers of a non-default layout's training run
+    (tile 32, its pair budget, view 0, the L1 + SSIM cotangent against its
+    target): K6 (aligned) or K5 (split) bit-exact vs plain, then K7 on the
+    aligned record buffer the layout builds.  Returns the kernel line's
+    entries for K6 and K7 (aligned: the shapes their path gives them)."""
+    from gaussiansplattingmlx_tpu_torch.ops import binning, merge_cuda, rasterize_cuda, staging
+
+    args, st = first_step_geometry(trainer)
+    what = f"train {layout}, first step"
+    if layout == "aligned":
+        relayout = check_relayout(args, st, f"training buffers, tile {st.tile_w}")
+        with torch.no_grad():
+            sp, _ = staging._stage_impl(st, *args)
+        require(int(sp.overflow_pairs) == 0, "aligned training buffers overflow")
+        aligned = check_raster_bwd_aligned(sp.records_cm, sp.aligned_start, sp.tile_count,
+                                           st.tile_w, st.chunk, trainer.views["target_rgb"][0],
+                                           what, timed=True)
+        return {"relayout": relayout, "raster_bwd_aligned": aligned}
+    packed, rect_min, rect_max, radii, depths = args
+    with torch.no_grad():
+        e = binning.expand_pairs(rect_min, rect_max, radii, WIDTH, HEIGHT, st.tile_w,
+                                 st.tile_h, st.max_pairs)
+        require(torch.equal(merge_cuda.merge_ranks(e.cum_keep, st.max_pairs),
+                            merge_cuda.merge_ranks_plain(e.cum_keep, st.max_pairs)),
+                "merge_ranks kernel != plain on the training buffers")
+        print(f"merge_ranks: bit-exact vs plain on the training buffers ({st.max_pairs} "
+              f"slots, tile {st.tile_w})", flush=True)
+        del e
+        b = binning.bin_gaussians(rect_min, rect_max, radii, depths, WIDTH, HEIGHT,
+                                  st.tile_w, st.tile_h, st.max_pairs)
+        require(int(b.overflow_pairs) == 0, "split training buffers overflow")
+        num_tiles = b.tile_count.numel()
+        records_cm, aligned_start = rasterize_cuda.split_records(
+            packed, b.sorted_gauss_idx, b.tile_start, b.tile_count, num_tiles, st.chunk)
+    check_raster_bwd_aligned(records_cm, aligned_start, b.tile_count, st.tile_w, st.chunk,
+                             trainer.views["target_rgb"][0], what)
+    return {}
+
+
+def check_training_buffers(trainer, device):
+    """K2, K1, K3 and K4 against their plain versions on the buffers of the
+    training run's first step: its tile and pair budget, the initial
+    parameters, view 0 and the L1 + SSIM cotangent against its target."""
+    from gaussiansplattingmlx_tpu_torch.ops import merge_cuda, rasterize_cuda, segsum_cuda, staging
+
+    cfg = trainer.cfg.raster
+    state, views = trainer.state, trainer.views
+    args, st = first_step_geometry(trainer)
+    with torch.no_grad():
         e, tbl = staging.merge_table(st, *args)
         g2 = merge_cuda.merge_gather(e.cum_keep, tbl, st.max_pairs)
         w2 = merge_cuda.merge_gather_plain(e.cum_keep, tbl, st.max_pairs)
@@ -589,6 +791,80 @@ def run_training(trainer, counters):
     return log, final, seconds, launches
 
 
+def check_train_run(trainer, log, final, launches, expected, seconds, peak_mem, what,
+                    extra=""):
+    """The checks of a training run: finite, falling losses, gradients that
+    reach the Gaussians, no overflow, every step run, and the expected
+    launch count of every kernel."""
+    gpu = gpu_line()
+    require(len(log) >= 2 and all(np.isfinite(m["loss"]) for m in log),
+            f"{what}: non-finite or missing losses: {[m['loss'] for m in log]}")
+    require(log[-1]["loss"] < log[0]["loss"],
+            f"{what}: loss did not fall: {log[0]['loss']} -> {log[-1]['loss']}")
+    require(final["grad_coverage"] > 0, f"{what}: no gaussian received a gradient")
+    require(final["overflow_pairs_acc"] == 0, f"{what}: a training step overflowed the budget")
+    require(int(trainer.state.step) == TRAIN_STEPS, f"{what}: not every step ran")
+    require(launches == expected, f"{what}: launches {launches}, expected {expected}")
+    window = sum(5 / m["iters_per_s"] for m in log[1:])
+    print(f"{what}: {TRAIN_STEPS} steps of {int(final['num_active'])} gaussians "
+          f"SH{SH_DEGREE} {WIDTH}x{HEIGHT} tile {TRAIN_TILE} over {TRAIN_VIEWS} views, "
+          f"max_pairs {trainer.cfg.raster.max_pairs}{extra}, num_pairs "
+          f"{int(final['num_pairs'])}; loss {log[0]['loss']:.5f} -> {log[-1]['loss']:.5f}, "
+          f"psnr {log[0]['psnr']:.3f} -> {log[-1]['psnr']:.3f} dB, grad_coverage "
+          f"{final['grad_coverage']:.4f}; {TRAIN_STEPS / seconds:.2f} steps/s over all "
+          f"{TRAIN_STEPS} steps, {5 * (len(log) - 1) / window:.2f} steps/s over steps "
+          f"6-{TRAIN_STEPS}; peak memory {peak_mem / 2**30:.3f} GiB; launches "
+          f"{launches} | {gpu}", flush=True)
+
+
+def run_split_serving(ply_path: Path, device, max_pairs, fused_colors, counters):
+    """The split layout's serving path: render_many over SPLIT_FRAMES orbit
+    frames of the bench scene at the serving run's pair budget, counters
+    zeroed just before and read just after.  Frames 0, 4, 8, 12 are the
+    serving run's four orbit views and must match its images."""
+    from gaussiansplattingmlx_tpu_torch.config import RasterizerConfig
+    from gaussiansplattingmlx_tpu_torch.data import ply
+    from gaussiansplattingmlx_tpu_torch.models.gaussians import activations, params_from_numpy
+    from gaussiansplattingmlx_tpu_torch.render import render_many
+    from gaussiansplattingmlx_tpu_torch.render_cli import orbit_c2w
+    from gaussiansplattingmlx_tpu_torch.utils.camera import Camera
+
+    params = params_from_numpy(ply.read_gaussian_ply(ply_path), device)
+    cfg = RasterizerConfig(staging="split", max_pairs=max_pairs)
+    keys = ("view", "proj", "camera_center", "fov_x", "fov_y", "focal_x", "focal_y")
+    ts = [Camera.from_c2w(WIDTH, HEIGHT, FOCAL, FOCAL,
+                          orbit_c2w(2 * np.pi * i / SPLIT_FRAMES, 4.0, 0.2)).tensors()
+          for i in range(SPLIT_FRAMES)]
+    cams = [torch.as_tensor(np.stack([np.asarray(t[k], np.float32) for t in ts])).to(device)
+            for k in keys]
+    with torch.no_grad():
+        acts = activations(params)
+
+        def run():
+            return render_many(*acts, *cams, WIDTH, HEIGHT, SH_DEGREE, raster_cfg=cfg)
+
+        run()  # warm-up
+        for k in counters.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        colors, _, npairs, overflow = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    peak_mem = torch.cuda.max_memory_allocated()
+    require(int(overflow.sum()) == 0, f"split serving overflowed: {overflow.tolist()}")
+    require(bool(torch.isfinite(colors).all()), "split serving: non-finite pixels")
+    same = []
+    for j, want in enumerate(fused_colors):
+        got = colors[j * SPLIT_FRAMES // len(fused_colors)].cpu()
+        want = torch.as_tensor(want)
+        torch.testing.assert_close(got, want, rtol=COLOR_RTOL, atol=COLOR_ATOL)
+        same.append(bool(torch.equal(got, want)))
+    return launches, seconds, npairs, peak_mem, same
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -596,11 +872,24 @@ def main() -> int:
     if not (ROOT / "gaussiansplattingmlx_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: the port's package is not beside this script", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
-    from gaussiansplattingmlx_tpu_torch import render_cli
+    from gaussiansplattingmlx_tpu_torch import config, render_cli
     from gaussiansplattingmlx_tpu_torch.ops import (
-        _kernels, merge_cuda, rasterize_cuda, segsum_cuda,
+        _kernels, merge_cuda, rasterize_cuda, relayout_cuda, segsum_cuda, staging,
     )
+
+    # Every kernel's launch counter; each main path names what it must launch.
+    counters = {"merge_gather": merge_cuda.KERNEL,
+                "raster_fwd": rasterize_cuda.KERNEL,
+                "raster_bwd": rasterize_cuda.BWD_KERNEL,
+                "segsum": segsum_cuda.KERNEL,
+                "merge_ranks": merge_cuda.RANKS_KERNEL,
+                "relayout": relayout_cuda.KERNEL,
+                "raster_bwd_aligned": rasterize_cuda.BWD_ALIGNED_KERNEL}
+
+    def expect(**launched):
+        return {name: launched.get(name, 0) for name in counters}
 
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -633,16 +922,16 @@ def main() -> int:
         check_small_render(device)
 
         # 4. the serving path through its entry point
-        serve_counters = {"merge_gather": merge_cuda.KERNEL,
-                          "raster_fwd": rasterize_cuda.KERNEL}
-        for k in serve_counters.values():
+        for k in counters.values():
             k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
         res = render_cli.main([
             "--ply", str(ply_path), "--out", str(Path(tmp) / "renders"),
             "--orbit", "4", "--width", str(WIDTH), "--height", str(HEIGHT),
             "--focal", str(FOCAL), "--bench-frames", "16", "--device", "cuda",
         ])
-        serve_launches = {name: k.launches for name, k in serve_counters.items()}
+        serve_launches = {name: k.launches for name, k in counters.items()}
+        serve_mem = torch.cuda.max_memory_allocated()
         require(all(o == 0 for o in res.overflow_pairs) and res.bench_overflow_pairs == 0,
                 f"overflow in the render: {res.overflow_pairs} / {res.bench_overflow_pairs}")
         require(all(npairs > 0 for npairs in res.num_pairs), "no pairs rendered")
@@ -650,47 +939,80 @@ def main() -> int:
             require(c.shape == (HEIGHT, WIDTH, 3), f"image shape {c.shape}")
             require(bool(np.isfinite(c).all()), "non-finite pixels")
             require(float(c.std()) > 1e-3 and float(c.max()) > 0.05, "blank image")
-        require(all(v > 0 for v in serve_launches.values()),
-                f"kernel not launched: {serve_launches}")
+        frames = serve_launches["raster_fwd"]
+        require(frames > 0 and serve_launches == expect(merge_gather=frames, raster_fwd=frames),
+                f"serving launches {serve_launches}")
         print(f"render: {N_GAUSSIANS} gaussians SH{SH_DEGREE} {WIDTH}x{HEIGHT}, "
               f"num_pairs {res.num_pairs}, max_pairs {res.max_pairs}, "
-              f"{res.bench_fps:.2f} frames/s over {res.bench_frames} frames, "
-              f"launches {serve_launches} | {gpu}", flush=True)
+              f"{res.bench_fps:.2f} frames/s over {res.bench_frames} frames, peak memory "
+              f"{serve_mem / 2**30:.3f} GiB, launches {serve_launches} | {gpu}", flush=True)
 
-        # 5. training kernels on the bench camera's training buffer
+        # 5. training kernels on the bench camera's training buffers
         data = orbit_targets(ply_path, device)
         target = torch.as_tensor(data.images[0]).to(device)
         raster_bwd, gid, rows = check_raster_bwd(args, st, target, device)
         segsum = check_segsum(gid, rows, N_GAUSSIANS)
+        del gid, rows
+        merge_ranks = check_merge_ranks(args, st)
+        check_relayout(args, st, "bench camera, tile 16", timed=False)
+        with torch.no_grad():
+            sp16, _ = staging._stage_impl(st, *args)
+        require(int(sp16.overflow_pairs) == 0, "aligned staging must not overflow")
+        check_raster_bwd_aligned(sp16.records_cm, sp16.aligned_start, sp16.tile_count,
+                                 st.tile_w, st.chunk, target, "bench camera")
+        del sp16
 
-        # 6. the training path through its entry point
+        # 6. the training path through its entry point (the default layout)
         trainer, peak, peak16 = training_setup(ply_path, data, device)
         check_training_buffers(trainer, device)
-        train_counters = {"merge_gather": merge_cuda.KERNEL,
-                          "raster_fwd": rasterize_cuda.KERNEL,
-                          "raster_bwd": rasterize_cuda.BWD_KERNEL,
-                          "segsum": segsum_cuda.KERNEL}
-        log, final, seconds, train_launches = run_training(trainer, train_counters)
-        peak_mem = torch.cuda.max_memory_allocated()
-        require(len(log) >= 2 and all(np.isfinite(m["loss"]) for m in log),
-                f"non-finite or missing losses: {[m['loss'] for m in log]}")
-        require(log[-1]["loss"] < log[0]["loss"],
-                f"loss did not fall: {log[0]['loss']} -> {log[-1]['loss']}")
-        require(final["grad_coverage"] > 0, "no gaussian received a gradient")
-        require(final["overflow_pairs_acc"] == 0, "a training step overflowed the budget")
-        require(int(trainer.state.step) == TRAIN_STEPS, "not every step ran")
-        require(all(v == TRAIN_STEPS for v in train_launches.values()),
-                f"launches per kernel != {TRAIN_STEPS} steps: {train_launches}")
-        window = sum(5 / m["iters_per_s"] for m in log[1:])
-        print(f"train: {TRAIN_STEPS} steps of {int(final['num_active'])} gaussians SH{SH_DEGREE} "
-              f"{WIDTH}x{HEIGHT} tile {TRAIN_TILE} over {TRAIN_VIEWS} views, max_pairs "
-              f"{trainer.cfg.raster.max_pairs} (probe peak {peak}; {peak16} at tile 16), num_pairs "
-              f"{int(final['num_pairs'])}; loss {log[0]['loss']:.5f} -> {log[-1]['loss']:.5f}, "
-              f"psnr {log[0]['psnr']:.3f} -> {log[-1]['psnr']:.3f} dB, grad_coverage "
-              f"{final['grad_coverage']:.4f}; {TRAIN_STEPS / seconds:.2f} steps/s over all "
-              f"{TRAIN_STEPS} steps, {5 * (len(log) - 1) / window:.2f} steps/s over steps "
-              f"6-{TRAIN_STEPS}; peak memory {peak_mem / 2**30:.3f} GiB; launches "
-              f"{train_launches} | {gpu}", flush=True)
+        steps = TRAIN_STEPS
+        log, final, seconds, train_launches = run_training(trainer, counters)
+        check_train_run(trainer, log, final, train_launches,
+                        expect(merge_gather=steps, raster_fwd=steps, raster_bwd=steps,
+                               segsum=steps),
+                        seconds, torch.cuda.max_memory_allocated(), "train",
+                        f" (probe peak {peak}; {peak16} at tile 16)")
+        max_pairs = trainer.cfg.raster.max_pairs
+        sorted_losses = np.array([m["loss"] for m in log])
+        del trainer
+
+        # 7. the non-default layouts' training runs, at the same pair budget;
+        # K6 and K7 checked and timed on the aligned run's own buffers
+        layout_launches, layout_entries = {}, {}
+        for layout, launched in (
+                ("aligned", dict(merge_gather=steps, relayout=steps)),
+                ("split", dict(merge_ranks=steps))):
+            selector = config.LAYOUTS[layout]
+            trainer = make_trainer(ply_path, data, device, **selector)
+            trainer.set_max_pairs(max_pairs)
+            layout_entries.update(check_layout_buffers(trainer, layout))
+            log, final, seconds, launches = run_training(trainer, counters)
+            losses = np.array([m["loss"] for m in log])
+            rel = float(np.max(np.abs(losses - sorted_losses) / sorted_losses))
+            require(rel <= LOSS_RTOL, f"train {layout}: losses {losses.tolist()} differ from "
+                                      f"the sorted run's {sorted_losses.tolist()}")
+            check_train_run(trainer, log, final, launches,
+                            expect(raster_fwd=steps, raster_bwd_aligned=steps, segsum=steps,
+                                   **launched),
+                            seconds, torch.cuda.max_memory_allocated(), f"train {layout}",
+                            f" ({', '.join(f'{k}={v!r}' for k, v in selector.items())}; "
+                            f"logged losses within {rel:.2e} of the sorted run's)")
+            layout_launches[layout] = launches
+            del trainer
+        relayout = layout_entries["relayout"]
+        raster_bwd_aligned = layout_entries["raster_bwd_aligned"]
+
+        # 8. the split layout's serving path
+        launches, seconds, npairs, split_mem, same = run_split_serving(
+            ply_path, device, res.max_pairs, res.colors, counters)
+        require(launches == expect(merge_ranks=SPLIT_FRAMES, raster_fwd=SPLIT_FRAMES),
+                f"split serving launches {launches}")
+        print(f"render split: {SPLIT_FRAMES} orbit frames through render_many, "
+              f"staging='split', max_pairs {res.max_pairs}, num_pairs "
+              f"{int(npairs.min())}-{int(npairs.max())}, {SPLIT_FRAMES / seconds:.2f} "
+              f"frames/s; the 4 serving views within tolerance of the fused render "
+              f"(bit-equal: {same}); peak memory {split_mem / 2**30:.3f} GiB; launches "
+              f"{launches} | {gpu}", flush=True)
 
     kernels = [
         {"name": "merge_gather", "route": "cuda",
@@ -709,8 +1031,21 @@ def main() -> int:
          "source": "gaussiansplattingmlx_tpu_torch/csrc/segsum.cu",
          "replaces": "gaussiansplattingmlx_tpu/ops/rasterize_pallas.py:726",
          "launches": train_launches["segsum"], **segsum},
+        {"name": "merge_ranks", "route": "cuda",
+         "source": "gaussiansplattingmlx_tpu_torch/csrc/merge_ranks.cu",
+         "replaces": "gaussiansplattingmlx_tpu/ops/merge_pallas.py:45",
+         "launches": layout_launches["split"]["merge_ranks"], **merge_ranks},
+        {"name": "relayout", "route": "cuda",
+         "source": "gaussiansplattingmlx_tpu_torch/csrc/relayout.cu",
+         "replaces": "gaussiansplattingmlx_tpu/ops/staging.py:246",
+         "launches": layout_launches["aligned"]["relayout"], **relayout},
+        {"name": "raster_bwd_aligned", "route": "cuda",
+         "source": "gaussiansplattingmlx_tpu_torch/csrc/rasterize_bwd_aligned.cu",
+         "replaces": "gaussiansplattingmlx_tpu/ops/rasterize_pallas.py:302",
+         "launches": layout_launches["aligned"]["raster_bwd_aligned"], **raster_bwd_aligned},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"gpu: {gpu}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

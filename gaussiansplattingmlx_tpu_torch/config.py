@@ -1,12 +1,12 @@
 """Configuration: the port's copies of the JAX package's config dataclasses
 (same fields, same defaults; a test pins the two packages' fields).
 
-The port keeps its own copy so that it never imports the JAX package.  It
-does not read the JAX layout selectors (``backend``, ``staging``,
-``train_staging``, ``grad_reduce``): the port always runs the
-payload-carriage, merge-gather, sorted-order path, and reduces gradients
-with its segment-sum kernel.  ``ParallelConfig`` is carried for config files;
-the port trains on one device only so far.
+The port keeps its own copy so that it never imports the JAX package.
+``RasterizerConfig`` checks its layout selectors when it is built: every
+value the port runs is accepted, the JAX package's values the port has not
+ported raise ``NotImplementedError``, anything else raises ``ValueError``.
+``ParallelConfig`` is carried for config files; the port trains on one
+device only so far.
 """
 
 from __future__ import annotations
@@ -29,9 +29,11 @@ class RasterizerConfig:
     auto_grow: bool = True
     max_pairs_limit: int = 2 ** 23
     auto_shrink: bool = True
-    # Trailing zero columns of the staged record buffer (and the budget
-    # quantum of render_cli's auto pair budget).
+    # Ownership quantum of the chunk-aligned layouts (each tile owns whole
+    # chunks), trailing zero columns of the sorted buffers, and the budget
+    # quantum of render_cli's auto pair budget.
     chunk_size: int = 128
+    # Per-Gaussian gradient reduction: "segsum" (gid sort + kernel K4).
     grad_reduce: str = "segsum"
     # Compositing constants.
     alpha_clamp: float = 0.99
@@ -44,9 +46,42 @@ class RasterizerConfig:
     tanfov_clip: float = 1.3
     radius_eigen_eps: float = 1e-5
     quat_norm_eps: float = 1e-8
+    # "auto", "pallas" and "pallas_interpret" all mean the port's kernels on
+    # CUDA tensors and their plain versions on CPU tensors.
     backend: str = "auto"
+    # "fused": merge-gather staging (``ops/staging.py``); inference always
+    # composites sorted-order records.  "split": ``binning.bin_gaussians``
+    # then the chunk-aligned record gather (``rasterize_cuda.rasterize_split``),
+    # for inference and training.
     staging: str = "fused"
+    # Training layout under fused staging: "sorted" (sorted-order records,
+    # backward K3) or "aligned" (chunk-aligned relayout K6, backward K7).
     train_staging: str = "sorted"
+
+    def __post_init__(self):
+        for name, ported, unported in (
+            ("backend", ("auto", "pallas", "pallas_interpret"), ("reference",)),
+            ("grad_reduce", ("segsum",), ("scatter",)),
+            ("staging", ("fused", "split"), ()),
+            ("train_staging", ("sorted", "aligned"), ()),
+        ):
+            value = getattr(self, name)
+            if value in unported:
+                raise NotImplementedError(
+                    f"RasterizerConfig.{name}={value!r} is not ported yet "
+                    f"(ROADMAP.md queue A.9)")
+            if value not in ported:
+                raise ValueError(
+                    f"RasterizerConfig.{name}={value!r}: expected one of {ported}")
+
+
+# The RasterizerConfig fields that select each record layout: "sorted" the
+# default, "aligned" and "split" the JAX package's other two.
+LAYOUTS = {
+    "sorted": {},
+    "aligned": {"train_staging": "aligned"},
+    "split": {"staging": "split"},
+}
 
 
 @dataclasses.dataclass(frozen=True)

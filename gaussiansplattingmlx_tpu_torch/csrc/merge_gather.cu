@@ -7,18 +7,20 @@
 //     out[r, p] = rank < n ? table[r, rank] : 0          for r < rows
 //
 // `cum` is nondecreasing (strictly increasing below the saturation clamp, pads
-// above every slot), so rank is one binary search.  The TPU kernel found the
-// rank with a blocked compare and selected the column with a one-hot MXU
-// contraction, both forced by Mosaic's alignment rules; here each thread owns
-// one slot, searches `cum` (n * 4 B, small enough to stay in the 50 MB L2)
-// and copies its column.  The selection is a copy, so the output is
-// bit-exact by construction.
+// above every slot), so rank is one binary search (merge_search.cuh).  The
+// TPU kernel found the rank with a blocked compare and selected the column
+// with a one-hot MXU contraction, both forced by Mosaic's alignment rules;
+// here each thread owns one slot, searches `cum` (n * 4 B, small enough to
+// stay in the 50 MB L2) and copies its column.  The selection is a copy, so
+// the output is bit-exact by construction.
 //
 // Bound: DRAM writes of rows * max_pairs * 4 B per call.  Writes are
 // coalesced along p; the table reads of neighbouring slots hit the same or
 // adjacent columns.  No alignment is assumed on n or max_pairs.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "merge_search.cuh"
 
 namespace {
 
@@ -27,12 +29,7 @@ __global__ void merge_gather_kernel(const int32_t* __restrict__ cum, int32_t n,
                                     float* __restrict__ out, int32_t max_pairs) {
     const int32_t p = blockIdx.x * blockDim.x + threadIdx.x;
     if (p >= max_pairs) return;
-    int32_t lo = 0, hi = n;
-    while (lo < hi) {
-        const int32_t mid = lo + ((hi - lo) >> 1);
-        if (cum[mid] <= p) lo = mid + 1; else hi = mid;
-    }
-    const int32_t rank = lo;
+    const int32_t rank = merge_rank(cum, n, p);
     if (rank < n) {
         for (int32_t r = 0; r < rows; ++r)
             out[static_cast<int64_t>(r) * max_pairs + p] =

@@ -1,0 +1,22 @@
+// The pair-slot -> owner search that K2 (merge_gather.cu) and K5
+// (merge_ranks.cu) share: rank(p) = #{ j : cum[j] <= p }, the upper bound
+// of p in the nondecreasing compacted cumsum `cum` [n], by binary search.
+// Integer compares only, so the rank is exact.  `cum` (n * 4 B) stays in the
+// 50 MB L2, and neighbouring slots walk the same search path.
+#pragma once
+
+#include <cstdint>
+
+namespace {
+
+__device__ __forceinline__ int32_t merge_rank(const int32_t* __restrict__ cum, int32_t n,
+                                              int32_t p) {
+    int32_t lo = 0, hi = n;
+    while (lo < hi) {
+        const int32_t mid = lo + ((hi - lo) >> 1);
+        if (cum[mid] <= p) lo = mid + 1; else hi = mid;
+    }
+    return lo;
+}
+
+}  // namespace

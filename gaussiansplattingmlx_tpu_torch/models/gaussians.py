@@ -92,7 +92,7 @@ def activations(params, active_mask=None):
 
 
 def knn_mean_sq_dist(points: np.ndarray, k: int = 3, chunk: int = 2048,
-                     device="cpu") -> np.ndarray:
+                     device="cuda") -> np.ndarray:
     """Mean squared distance to the k nearest neighbours (excluding self).
 
     Runs on ``device`` in blocks of ``chunk`` rows: distances by the gemm
@@ -127,7 +127,7 @@ def create_from_points(
     init_opacity: float = 0.1,
     dist2_floor: float = 1e-7,
     knn_k: int = 3,
-    device="cpu",
+    device="cuda",
 ) -> tuple[GaussianParams, int]:
     """Initialize from a point cloud ([N, 3] points, [N, 3] colours in
     [0, 1]).  Returns (params padded to ``capacity`` on ``device``,

@@ -1,11 +1,14 @@
-"""Exact (gaussian, tile) pair expansion onto a static pair axis (torch
-counterpart of the JAX package's ``ops/binning.py``, the parts the sorted
-inference staging uses).
+"""Exact (gaussian, tile) pair expansion onto a static pair axis, and the
+split pipeline's tile binning (torch counterpart of the JAX package's
+``ops/binning.py``).
 
 Per-Gaussian tile footprints from the screen rect, an inclusive saturating
 cumsum giving each gaussian a contiguous block of pair slots in
 gaussian-major order, and the compaction of positive-footprint gaussians that
-makes the cumsum strictly increasing for the merge (``ops/merge_cuda.py``).
+makes the cumsum strictly increasing for the merge (``ops/merge_cuda.py``:
+K2 fuses the merge with the staging's table gather, K5 gives the ranks
+alone).  ``bin_gaussians`` is the split layout's binning: ranks, one table
+row gather, and the (tile, depth) sort with the gaussian id as payload.
 Index machinery only: torch ops, bit-exact against the JAX package.
 """
 
@@ -14,6 +17,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from . import merge_cuda
 
 # Cumulative pair counts saturate at this value (2^30 - 1 keeps every partial
 # sum inside int32 in the JAX package's clamped-add scan).
@@ -71,8 +76,9 @@ def expand_pairs(
     max_pairs: int,
 ) -> PairExpansion:
     """Footprints, saturating cumsum and compaction.  The pair-slot -> owner
-    merge is fused downstream (``merge_cuda.merge_gather`` on ``cum_keep``),
-    so no [max_pairs] rank is built here."""
+    merge runs downstream on ``cum_keep``: fused with the staging's table
+    gather (``merge_cuda.merge_gather``) or alone in ``bin_gaussians``
+    (``merge_cuda.merge_ranks``)."""
     n = rect_min.shape[0]
     dev = rect_min.device
     grid_w = -(-image_width // tile_w)
@@ -128,3 +134,82 @@ def enumerate_tiles(g_block_start, g_rw, g_tmin_x, g_tmin_y, grid_w):
     ty = g_tmin_y + q
     tx = g_tmin_x + (local - q * g_rw)
     return ty * grid_w + tx
+
+
+def sort_pairs(tile_ids: torch.Tensor, depth_keys: torch.Tensor) -> torch.Tensor:
+    """The permutation of one stable (tile, depth) sort: ``torch.sort`` of the
+    int64 key ``tile << 32 | f32_bits(depth)``.  It is exactly the JAX
+    package's two-key stable ``lax.sort``: visible depths are >= z_cull > 0,
+    the bits of a positive float32 sort in the order of its value, and
+    invalid slots carry (num_tiles, +inf)."""
+    key = (tile_ids.to(torch.int64) << 32) | depth_keys.view(torch.int32).to(torch.int64)
+    return torch.sort(key, stable=True).indices
+
+
+def tile_ranges(sorted_tile: torch.Tensor, num_tiles: int):
+    """(tile_start, tile_count) [num_tiles] int32 of the sorted tile ids."""
+    tile_iota = torch.arange(num_tiles, dtype=torch.int32, device=sorted_tile.device)
+    start = torch.searchsorted(sorted_tile, tile_iota, side="left").to(torch.int32)
+    end = torch.searchsorted(sorted_tile, tile_iota, side="right").to(torch.int32)
+    return start, end - start
+
+
+class TileBinning(NamedTuple):
+    sorted_gauss_idx: torch.Tensor  # [max_pairs] int32 gaussian per pair (pad: 0)
+    sorted_tile_id: torch.Tensor  # [max_pairs] int32 tile per pair (pad: num_tiles)
+    tile_start: torch.Tensor  # [num_tiles] int32 first pair of each tile
+    tile_count: torch.Tensor  # [num_tiles] int32 pairs per tile
+    num_pairs: torch.Tensor  # [] int32
+    overflow_gaussians: torch.Tensor  # [] int32
+    overflow_pairs: torch.Tensor  # [] int32
+    pair_valid: torch.Tensor  # [max_pairs] bool
+
+
+def bin_gaussians(
+    rect_min: torch.Tensor,
+    rect_max: torch.Tensor,
+    radii: torch.Tensor,
+    depths: torch.Tensor,
+    image_width: int,
+    image_height: int,
+    tile_w: int,
+    tile_h: int,
+    max_pairs: int,
+) -> TileBinning:
+    """The split layout's binning: owner ranks (K5), one [max_pairs] row
+    gather of the per-gaussian table in compacted order, per-pair tiles,
+    and the stable (tile, depth) sort with the gaussian id as payload.  The
+    depth rides as a float (the JAX package bit-casts it through its int
+    table and back: the same values)."""
+    dev = rect_min.device
+    grid_w = -(-image_width // tile_w)
+    num_tiles = grid_w * -(-image_height // tile_h)
+    e = expand_pairs(rect_min, rect_max, radii, image_width, image_height,
+                     tile_w, tile_h, max_pairs)
+    rank = torch.clamp(merge_cuda.merge_ranks(e.cum_keep, max_pairs),
+                       max=rect_min.shape[0] - 1)
+    keep = e.keep_idx
+    i32 = torch.int32
+    table = torch.stack([e.tmin_x[keep], e.tmin_y[keep], e.rw[keep],
+                         e.block_start[keep], keep.to(i32)], dim=1)  # [n, 5]
+    g = table[rank]
+    depth_g = depths.detach().to(torch.float32)[keep][rank]
+    valid = torch.arange(max_pairs, dtype=i32, device=dev) < e.num_pairs
+    tiles = enumerate_tiles(g[:, 3], g[:, 2], g[:, 0], g[:, 1], grid_w)
+    tile_ids = torch.where(valid, tiles, torch.full((), num_tiles, dtype=i32, device=dev))
+    depth_keys = torch.where(valid, depth_g,
+                             torch.full((), float("inf"), dtype=torch.float32, device=dev))
+    gauss_ids = torch.where(valid, g[:, 4], torch.zeros((), dtype=i32, device=dev))
+    perm = sort_pairs(tile_ids, depth_keys)
+    sorted_tile = tile_ids[perm]
+    tile_start, tile_count = tile_ranges(sorted_tile, num_tiles)
+    return TileBinning(
+        sorted_gauss_idx=gauss_ids[perm],
+        sorted_tile_id=sorted_tile,
+        tile_start=tile_start,
+        tile_count=tile_count,
+        num_pairs=e.num_pairs,
+        overflow_gaussians=e.overflow_gaussians,
+        overflow_pairs=e.overflow_pairs,
+        pair_valid=sorted_tile < num_tiles,
+    )

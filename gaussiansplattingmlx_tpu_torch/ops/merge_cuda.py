@@ -1,12 +1,16 @@
-"""Fused pair-slot -> owner merge + table gather (kernel K2).
+"""Pair-slot -> owner merge: fused with the table gather (kernel K2) and
+alone (kernel K5).
 
 Counterpart of the JAX package's ``ops/merge_pallas.py`` (``merge_gather``,
-Pallas ``_merge_gather_kernel``).  For every pair slot p in [0, max_pairs),
-rank(p) = #{j : cum[j] <= p} over the compacted inclusive footprint cumsum,
-and column p of the output is ``table[:, rank(p)]``, zeros where rank == n.
+Pallas ``_merge_gather_kernel``; ``merge_ranks``, Pallas ``_merge_kernel``).
+For every pair slot p in [0, max_pairs), rank(p) = #{j : cum[j] <= p} over
+the compacted inclusive footprint cumsum.  ``merge_ranks`` returns the ranks;
+``merge_gather`` returns column ``table[:, rank(p)]`` for every slot, zeros
+where rank == n.
 
-``merge_gather`` dispatches on the device of its inputs: CPU tensors take
-``merge_gather_plain``; CUDA tensors launch ``csrc/merge_gather.cu`` or raise.
+Both dispatch on the device of their inputs: CPU tensors take
+``merge_ranks_plain`` / ``merge_gather_plain``; CUDA tensors launch
+``csrc/merge_ranks.cu`` / ``csrc/merge_gather.cu`` or raise.
 """
 
 from __future__ import annotations
@@ -28,29 +32,60 @@ KERNEL = _kernels.Kernel(
     [ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p, ctypes.c_int32,
      ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p],
 )
+RANKS_KERNEL = _kernels.Kernel(
+    "gsplat_merge_ranks",
+    [ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p],
+)
+
+
+def _check_cum(cum: torch.Tensor, max_pairs: int) -> None:
+    check = _kernels.check
+    check(cum.dim() == 1 and cum.dtype == torch.int32, "cum must be 1-D int32")
+    check(cum.is_contiguous(), "cum must be contiguous")
+    check(0 < max_pairs < 2 ** 31, "need 0 < max_pairs < 2^31")
+
+
+def merge_ranks_plain(cum: torch.Tensor, max_pairs: int) -> torch.Tensor:
+    """Plain torch version of K5: searchsorted(right=True) of every slot."""
+    _check_cum(cum, max_pairs)
+    p = torch.arange(max_pairs, dtype=torch.int32, device=cum.device)
+    return torch.searchsorted(cum, p, right=True).to(torch.int32)
+
+
+def merge_ranks(cum: torch.Tensor, max_pairs: int) -> torch.Tensor:
+    """int32 cum [n] (nondecreasing) -> int32 rank [max_pairs], rank(p) =
+    #{j : cum[j] <= p}; n where no entry exceeds p."""
+    if cum.device.type == "cpu":
+        return merge_ranks_plain(cum, max_pairs)
+    if cum.device.type != "cuda":
+        raise ValueError(f"merge_ranks: unsupported device {cum.device}")
+    _check_cum(cum, max_pairs)
+    rank = torch.empty((max_pairs,), dtype=torch.int32, device=cum.device)
+    with torch.cuda.device(cum.device):
+        RANKS_KERNEL.launch(cum.data_ptr(), cum.shape[0], rank.data_ptr(), max_pairs,
+                            _kernels.stream_of(cum))
+    return rank
 
 
 def _check(cum: torch.Tensor, table_cm: torch.Tensor, max_pairs: int) -> None:
     check = _kernels.check
-    check(cum.dim() == 1 and cum.dtype == torch.int32, "cum must be 1-D int32")
+    _check_cum(cum, max_pairs)
     n = cum.shape[0]
     check(table_cm.dim() == 2 and table_cm.shape[1] == n,
           f"table must be [R, {n}], got {tuple(table_cm.shape)}")
     check(table_cm.dtype == torch.float32, "table must be float32")
     check(table_cm.device == cum.device, "cum and table on different devices")
-    check(cum.is_contiguous() and table_cm.is_contiguous(),
-          "cum and table must be contiguous")
-    check(0 < max_pairs <= _F32_EXACT and n <= _F32_EXACT,
-          "f32-exact value carriage needs 0 < max_pairs, n <= 2^24")
+    check(table_cm.is_contiguous(), "table must be contiguous")
+    check(max_pairs <= _F32_EXACT and n <= _F32_EXACT,
+          "f32-exact value carriage needs max_pairs, n <= 2^24")
 
 
 def merge_gather_plain(cum: torch.Tensor, table_cm: torch.Tensor,
                        max_pairs: int) -> torch.Tensor:
-    """Plain torch version: searchsorted(right=True), then a column gather
-    from the table with one appended zero column."""
+    """Plain torch version: the ranks (``merge_ranks_plain``), then a column
+    gather from the table with one appended zero column."""
     _check(cum, table_cm, max_pairs)
-    p = torch.arange(max_pairs, dtype=torch.int32, device=cum.device)
-    rank = torch.searchsorted(cum, p, right=True)
+    rank = merge_ranks_plain(cum, max_pairs)
     zero = torch.zeros((table_cm.shape[0], 1), dtype=table_cm.dtype,
                        device=table_cm.device)
     return torch.cat([table_cm, zero], dim=1)[:, rank]

@@ -1,23 +1,30 @@
 """Tile rasterizer over a staged record buffer: forward compositing (kernel
-K1) and backward compositing (kernel K3), with a ``torch.autograd.Function``
-over the two.
+K1), backward compositing over sorted records (K3) and over chunk-aligned
+records (K7), a ``torch.autograd.Function`` over them, the chunk-aligned
+layout's index math, and the split layout's rasterizer.
 
 Counterpart of the JAX package's ``ops/rasterize_pallas.py``
-(``rasterize_staged``, ``_raster_core``, Pallas ``_fwd_kernel`` and
-``_bwd_kernel_sorted``, ``_untile``).
+(``rasterize_staged``, ``_raster_core``, Pallas ``_fwd_kernel``,
+``_bwd_kernel_sorted`` and ``_bwd_kernel``, ``aligned_chunk_plan``,
+``aligned_relayout``, ``_gather_records``, ``rasterize_pallas``,
+``_untile``).
 
 Record buffer ``records_cm`` [16, P] f32, component-major, rows:
 0 mean_x, 1 mean_y, 2 c00, 3 c01, 4 c10, 5 c11, 6-8 rgb, 9 depth,
-10 opacity, 11-15 zero.  Tile t composites the columns
-[tile_start[t], tile_start[t] + tile_count[t]) in order; starts need not be
-aligned.  The per-tile output [num_tiles, 6, tile_h * tile_w] holds rgb,
-depth, alpha (= 1 - T) and n_contrib; the background is applied outside.
-The backward writes one gradient row per record column, [16, P] (rows 3 and
-4 both hold d_cs; rows 11-15 and columns no tile replays stay zero).
+10 opacity, 11-15 not read.  Tile t composites the columns
+[tile_start[t], tile_start[t] + tile_count[t]) in order.  In the sorted
+layout starts need not be aligned; in the chunk-aligned layout tile t owns
+the whole chunks [aligned_start[t], aligned_start[t] + ceil(count / C) * C),
+zeros after its records.  The per-tile output [num_tiles, 6, tile_h *
+tile_w] holds rgb, depth, alpha (= 1 - T) and n_contrib; the background is
+applied outside.  The backward writes one gradient row per record column,
+[16, P] (rows 3 and 4 both hold d_cs; rows 11-15 and columns no tile
+replays are zero).
 
-``raster_fwd`` and ``raster_bwd`` dispatch on the device of their inputs:
-CPU tensors take ``raster_fwd_plain`` / ``raster_bwd_plain``; CUDA tensors
-launch ``csrc/rasterize_fwd.cu`` / ``csrc/rasterize_bwd.cu`` or raise.
+``raster_fwd``, ``raster_bwd`` and ``raster_bwd_aligned`` dispatch on the
+device of their inputs: CPU tensors take the ``*_plain`` versions; CUDA
+tensors launch ``csrc/rasterize_fwd.cu`` / ``csrc/rasterize_bwd.cu`` /
+``csrc/rasterize_bwd_aligned.cu`` or raise.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import ctypes
 
 import torch
 
-from . import _kernels
+from . import _kernels, segsum_cuda
 from .rasterize_ref import RenderOutputs
 
 REC_DIM = 16
@@ -48,6 +55,16 @@ BWD_KERNEL = _kernels.Kernel(
      ctypes.c_int32, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
      ctypes.c_void_p],
 )
+BWD_ALIGNED_KERNEL = _kernels.Kernel(
+    "gsplat_raster_bwd_aligned",
+    [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+     ctypes.c_int32, ctypes.c_int32, ctypes.c_float, ctypes.c_float,
+     ctypes.c_void_p, ctypes.c_void_p],
+)
+# packed [N, 11] reference layout -> kernel record layout (depth/op swapped);
+# an involution, so it also maps kernel-layout gradients back.
+PERM = (0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 9)
 
 
 def _check(records_cm, tile_start, tile_count, grid_w, grid_h, tile_w, tile_h):
@@ -197,6 +214,16 @@ def raster_fwd(records_cm, tile_start, tile_count, grid_w, grid_h, tile_w,
     return out
 
 
+def _check_bwd(records_cm, cot_block, num_tiles, tile_w, tile_h):
+    tt = tile_w * tile_h
+    _kernels.check(tt % 32 == 0, f"tile {tile_w}x{tile_h}: the backward needs whole warps")
+    _kernels.check(cot_block.dtype == torch.float32 and cot_block.is_contiguous()
+                   and tuple(cot_block.shape) == (num_tiles, tt, COT_COLS)
+                   and cot_block.device == records_cm.device,
+                   f"cotangent block must be contiguous f32 [{num_tiles}, {tt}, "
+                   f"{COT_COLS}] on {records_cm.device}")
+
+
 def raster_bwd(records_cm, tile_start, tile_count, cot_block, grid_w, grid_h,
                tile_w, tile_h, *, alpha_clamp=0.99, transmittance_eps=1e-4,
                undo_denom_floor=1e-6):
@@ -212,13 +239,7 @@ def raster_bwd(records_cm, tile_start, tile_count, cot_block, grid_w, grid_h,
         raise ValueError(f"raster_bwd: unsupported device {records_cm.device}")
     _check(records_cm, tile_start, tile_count, grid_w, grid_h, tile_w, tile_h)
     num_tiles = grid_w * grid_h
-    tt = tile_w * tile_h
-    _kernels.check(tt % 32 == 0, f"tile {tile_w}x{tile_h}: the backward needs whole warps")
-    _kernels.check(cot_block.dtype == torch.float32 and cot_block.is_contiguous()
-                   and tuple(cot_block.shape) == (num_tiles, tt, COT_COLS)
-                   and cot_block.device == records_cm.device,
-                   f"cotangent block must be contiguous f32 [{num_tiles}, {tt}, "
-                   f"{COT_COLS}] on {records_cm.device}")
+    _check_bwd(records_cm, cot_block, num_tiles, tile_w, tile_h)
     grad = torch.zeros((REC_DIM, records_cm.shape[1]), dtype=torch.float32,
                        device=records_cm.device)
     with torch.cuda.device(records_cm.device):
@@ -226,6 +247,40 @@ def raster_bwd(records_cm, tile_start, tile_count, cot_block, grid_w, grid_h,
             records_cm.data_ptr(), records_cm.shape[1], tile_start.data_ptr(),
             tile_count.data_ptr(), cot_block.data_ptr(), num_tiles, grid_w,
             tile_w, tile_h, alpha_clamp, undo_denom_floor, grad.data_ptr(),
+            _kernels.stream_of(records_cm),
+        )
+    return grad
+
+
+def raster_bwd_aligned(records_cm, aligned_start, tile_count, cot_block, grid_w, grid_h,
+                       tile_w, tile_h, chunk, *, alpha_clamp=0.99, transmittance_eps=1e-4,
+                       undo_denom_floor=1e-6):
+    """Backward over a chunk-aligned record buffer (``aligned_start`` the
+    exclusive cumsum of ceil(tile_count / chunk) * chunk): per-column
+    gradient rows [16, P] with every column written, so the output needs no
+    clearing.  Its plain version is ``raster_bwd_plain`` over the aligned
+    ranges: the replayed columns' rows and zeros in every other column (the
+    dead tail and pad lanes each tile owns, and the columns no tile owns),
+    so ``chunk`` changes nothing there."""
+    if records_cm.device.type == "cpu":
+        return raster_bwd_plain(
+            records_cm, aligned_start, tile_count, cot_block, grid_w, grid_h,
+            tile_w, tile_h, alpha_clamp=alpha_clamp,
+            transmittance_eps=transmittance_eps, undo_denom_floor=undo_denom_floor,
+        )
+    if records_cm.device.type != "cuda":
+        raise ValueError(f"raster_bwd_aligned: unsupported device {records_cm.device}")
+    _check(records_cm, aligned_start, tile_count, grid_w, grid_h, tile_w, tile_h)
+    num_tiles = grid_w * grid_h
+    _check_bwd(records_cm, cot_block, num_tiles, tile_w, tile_h)
+    _kernels.check(chunk > 0, f"chunk must be positive, got {chunk}")
+    grad = torch.empty((REC_DIM, records_cm.shape[1]), dtype=torch.float32,
+                       device=records_cm.device)
+    with torch.cuda.device(records_cm.device):
+        BWD_ALIGNED_KERNEL.launch(
+            records_cm.data_ptr(), records_cm.shape[1], aligned_start.data_ptr(),
+            tile_count.data_ptr(), cot_block.data_ptr(), num_tiles, grid_w,
+            tile_w, tile_h, chunk, alpha_clamp, undo_denom_floor, grad.data_ptr(),
             _kernels.stream_of(records_cm),
         )
     return grad
@@ -239,27 +294,33 @@ def cotangent_block(cot_out, alpha_ncon):
 
 
 class _RasterCore(torch.autograd.Function):
-    """K1 forward; K3 backward from the saved records, tile ranges and the
-    forward's alpha and n_contrib.  Only the records are differentiable."""
+    """K1 forward; backward from the saved records, tile ranges and the
+    forward's alpha and n_contrib: K3 over sorted-order records
+    (``sorted_mode``), K7 over chunk-aligned ones.  The caller names the
+    layout.  Only the records are differentiable."""
 
     @staticmethod
-    def forward(ctx, records_cm, tile_start, tile_count, geom, consts):
+    def forward(ctx, records_cm, tile_start, tile_count, geom, consts, sorted_mode, chunk):
         out = raster_fwd(records_cm, tile_start, tile_count, *geom,
                          alpha_clamp=consts[0], transmittance_eps=consts[1])
         ctx.save_for_backward(records_cm, tile_start, tile_count,
                               out[:, 4:6].contiguous())
         ctx.geom, ctx.consts = geom, consts
+        ctx.sorted_mode, ctx.chunk = sorted_mode, chunk
         return out
 
     @staticmethod
     def backward(ctx, cot_out):
         records_cm, tile_start, tile_count, alpha_ncon = ctx.saved_tensors
         alpha_clamp, eps, floor = ctx.consts
-        grad = raster_bwd(records_cm, tile_start, tile_count,
-                          cotangent_block(cot_out, alpha_ncon), *ctx.geom,
-                          alpha_clamp=alpha_clamp, transmittance_eps=eps,
-                          undo_denom_floor=floor)
-        return grad, None, None, None, None
+        block = cotangent_block(cot_out, alpha_ncon)
+        consts = dict(alpha_clamp=alpha_clamp, transmittance_eps=eps, undo_denom_floor=floor)
+        if ctx.sorted_mode:
+            grad = raster_bwd(records_cm, tile_start, tile_count, block, *ctx.geom, **consts)
+        else:
+            grad = raster_bwd_aligned(records_cm, tile_start, tile_count, block, *ctx.geom,
+                                      ctx.chunk, **consts)
+        return grad, None, None, None, None, None, None
 
 
 def _untile(out, grid_w, grid_h, tile_w, tile_h, image_width, image_height):
@@ -278,18 +339,130 @@ def _untile(out, grid_w, grid_h, tile_w, tile_h, image_width, image_height):
 
 
 def rasterize_staged(records_cm, tile_start, tile_count, image_width,
-                     image_height, tile_w, tile_h, *, alpha_clamp=0.99,
-                     transmittance_eps=1e-4, undo_denom_floor=1e-6) -> RenderOutputs:
-    """Rasterize a staged sorted-order record buffer; differentiable with
-    respect to ``records_cm`` when it requires grad (K1 forward, K3
-    backward)."""
+                     image_height, tile_w, tile_h, *, chunk_size=128, alpha_clamp=0.99,
+                     transmittance_eps=1e-4, undo_denom_floor=1e-6,
+                     sorted_mode=True) -> RenderOutputs:
+    """Rasterize a staged record buffer; differentiable with respect to
+    ``records_cm`` when it requires grad (K1 forward; K3 backward over
+    sorted-order records with raw ``tile_start``s, ``sorted_mode=True``, or
+    K7 over chunk-aligned records with the aligned starts,
+    ``sorted_mode=False``)."""
     grid_w = -(-image_width // tile_w)
     grid_h = -(-image_height // tile_h)
     geom = (grid_w, grid_h, tile_w, tile_h)
     if records_cm.requires_grad and torch.is_grad_enabled():
         out = _RasterCore.apply(records_cm, tile_start, tile_count, geom,
-                                (alpha_clamp, transmittance_eps, undo_denom_floor))
+                                (alpha_clamp, transmittance_eps, undo_denom_floor),
+                                sorted_mode, chunk_size)
     else:
         out = raster_fwd(records_cm, tile_start, tile_count, *geom,
                          alpha_clamp=alpha_clamp, transmittance_eps=transmittance_eps)
     return _untile(out, grid_w, grid_h, tile_w, tile_h, image_width, image_height)
+
+
+# --- the chunk-aligned layout ---------------------------------------------------
+
+
+def aligned_chunk_plan(tile_count, chunk: int, num_aligned: int):
+    """Per-chunk plan of the chunk-aligned layout, shared by the split
+    rasterizer, the aligned staging and K6 so that they cannot diverge.
+
+    Tile t owns the ceil(count / chunk) chunks from ``aligned_start[t]`` (the
+    exclusive cumsum of the owned sizes).  Returns (aligned_start
+    [num_tiles], owner [num_aligned / chunk], rank0 [num_aligned / chunk]),
+    int32: chunk c holds its owner's sorted pairs from within-tile rank
+    rank0[c] (ranks past tile_count are padding; chunks past the last
+    tile's are owned by the last tile, past its count)."""
+    dev = tile_count.device
+    sizes = (tile_count.to(torch.int64) + chunk - 1) // chunk * chunk
+    aligned_start = (torch.cumsum(sizes, 0) - sizes).to(torch.int32)
+    first_slot = torch.arange(num_aligned // chunk, dtype=torch.int32, device=dev) * chunk
+    owner = torch.searchsorted(aligned_start, first_slot, right=True).to(torch.int32) - 1
+    owner = torch.clamp(owner, 0, tile_count.shape[0] - 1)
+    rank0 = first_slot - aligned_start[owner.long()]
+    return aligned_start, owner, rank0
+
+
+def aligned_slots(tile_start, tile_count, owner, rank0, chunk: int):
+    """Per-slot view of the plan: (src [num_aligned] int64, within
+    [num_aligned] bool), slot c * chunk + j taking sorted position
+    tile_start[o] + rank0[c] + j of its owner o while that rank is below
+    tile_count[o]."""
+    o = owner.long()
+    rank = rank0.long()[:, None] + torch.arange(chunk, device=tile_count.device)
+    within = (rank < tile_count[o].long()[:, None]).reshape(-1)
+    src = torch.where(within, (tile_start[o].long()[:, None] + rank).reshape(-1), 0)
+    return src, within
+
+
+def aligned_relayout(tile_start, tile_count, chunk: int, num_aligned: int):
+    """(aligned_start [num_tiles], src, within) of ``aligned_chunk_plan`` and
+    ``aligned_slots``: tile t's pairs sit at aligned columns
+    [aligned_start[t], aligned_start[t] + tile_count[t])."""
+    aligned_start, owner, rank0 = aligned_chunk_plan(tile_count, chunk, num_aligned)
+    return (aligned_start, *aligned_slots(tile_start, tile_count, owner, rank0, chunk))
+
+
+def reduce_record_cotangent(g_cm: torch.Tensor, gid: torch.Tensor,
+                            num_rec: int) -> torch.Tensor:
+    """d packed [num_rec, 11] from the record-buffer cotangent [16, P] and the
+    per-column gaussian id [P] (``num_rec`` = no gaussian): the per-Gaussian
+    segment sum (K4, which also copies row 3 into row 4: both conic
+    off-diagonals get d_cs), then kernel layout -> packed layout.  The one
+    backward of every staging and of the split layout's record gather."""
+    grad_rec = segsum_cuda.segment_reduce(g_cm, gid, num_rec)  # [N, 16]
+    return grad_rec[:, list(PERM)]
+
+
+class _GatherRecords(torch.autograd.Function):
+    """The split layout's record gather.  Forward: the chunk-aligned record
+    buffer [16, num_aligned], column j = kernel-layout row of gaussian
+    ``aligned_idx[j]`` where ``aligned_valid[j]``, else zeros.  Backward:
+    ``reduce_record_cotangent`` (K4) on gid = aligned_idx where valid, else
+    N."""
+
+    @staticmethod
+    def forward(ctx, packed, aligned_idx, aligned_valid):
+        n = packed.shape[0]
+        rec = torch.zeros((n, REC_DIM), dtype=torch.float32, device=packed.device)
+        rec[:, :_REC_ROWS] = packed.detach()[:, list(PERM)]
+        gathered = torch.where(aligned_valid[:, None], rec[aligned_idx], 0.0)
+        gid = torch.where(aligned_valid, aligned_idx, n).to(torch.int32)
+        ctx.save_for_backward(gid)
+        ctx.num_rec = n
+        return gathered.T.contiguous()
+
+    @staticmethod
+    def backward(ctx, g_cm):
+        (gid,) = ctx.saved_tensors
+        return reduce_record_cotangent(g_cm.contiguous(), gid, ctx.num_rec), None, None
+
+
+def split_records(packed, sorted_gauss_idx, tile_start, tile_count, num_tiles: int,
+                  chunk: int):
+    """The split layout's chunk-aligned record buffer: (records_cm [16,
+    max_pairs + num_tiles * chunk], aligned_start [num_tiles]) from packed
+    [N, 11] (reference layout) and the binning's sorted gaussian ids and
+    tile ranges; differentiable with respect to ``packed``."""
+    num_aligned = sorted_gauss_idx.shape[0] + num_tiles * chunk
+    aligned_start, src, within = aligned_relayout(tile_start, tile_count, chunk, num_aligned)
+    aligned_idx = torch.where(within, sorted_gauss_idx[src].long(), 0)
+    return _GatherRecords.apply(packed, aligned_idx, within), aligned_start
+
+
+def rasterize_split(packed, sorted_gauss_idx, tile_start, tile_count, image_width,
+                    image_height, tile_w, tile_h, *, chunk_size=128, alpha_clamp=0.99,
+                    transmittance_eps=1e-4, undo_denom_floor=1e-6) -> RenderOutputs:
+    """The split layout's rasterizer (the JAX package's
+    ``rasterize_pallas``): packed [N, 11] (reference layout) and the binning
+    -> image outputs.  The sorted pairs are laid out chunk-aligned
+    (``num_aligned = max_pairs + num_tiles * chunk`` columns), the records
+    gathered there (``_GatherRecords``), then K1 forward and, when
+    ``packed`` requires grad, K7 backward."""
+    num_tiles = -(-image_width // tile_w) * -(-image_height // tile_h)
+    records_cm, aligned_start = split_records(packed, sorted_gauss_idx, tile_start,
+                                              tile_count, num_tiles, chunk_size)
+    return rasterize_staged(records_cm, aligned_start, tile_count, image_width,
+                            image_height, tile_w, tile_h, chunk_size=chunk_size,
+                            alpha_clamp=alpha_clamp, transmittance_eps=transmittance_eps,
+                            undo_denom_floor=undo_denom_floor, sorted_mode=False)

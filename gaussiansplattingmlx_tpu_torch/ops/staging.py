@@ -1,6 +1,8 @@
-"""Sorted-order pair staging (torch counterpart of the JAX package's
-``ops/staging.py``: ``StagingStatic``, ``SortedPairs``, ``_sorted_pairs``,
-``stage_pairs_sorted`` for inference and ``stage_pairs_train`` for training).
+"""Pair staging (torch counterpart of the JAX package's ``ops/staging.py``:
+``StagingStatic``, ``SortedPairs``, ``_sorted_pairs``, ``stage_pairs_sorted``
+for inference, ``stage_pairs_train`` for training in sorted order, and
+``StagedPairs`` / ``stage_pairs`` for training in the chunk-aligned
+layout).
 
 Payload carriage, as the JAX package runs by default:
 
@@ -9,13 +11,16 @@ Payload carriage, as the JAX package runs by default:
        the pair axis by the fused merge-gather kernel (``merge_cuda``).
     2. ONE stable sort on (tile, depth) orders the pairs; the record rows are
        carried through it by the sort's permutation.
-    3. Per-tile ranges by searchsorted.  No chunk-aligned relayout: the
-       compositing kernels read unaligned tile starts.
+    3. Per-tile ranges by searchsorted.  The sorted layouts stop here: the
+       compositing kernels read unaligned tile starts.  The aligned layout
+       copies each tile's records to whole chunks of its own (the relayout,
+       kernel K6, ``relayout_cuda``).
 
 Training staging is a ``torch.autograd.Function`` around the same index
-machinery: the forward also keeps the sorted gaussian id of every record
-column, and the backward is the per-Gaussian segment sum of the record
-cotangent (``segsum_cuda``, kernel K4); the sort is never differentiated.
+machinery: the forward also keeps the gaussian id of every record column,
+and the backward is the per-Gaussian segment sum of the record cotangent
+(``rasterize_cuda.reduce_record_cotangent``, kernel K4); the sort is never
+differentiated.
 
 The (tile, depth) sort is one ``torch.sort(stable=True)`` of the int64 key
 ``tile << 32 | f32_bits(depth)``.  It gives exactly the permutation of the
@@ -32,12 +37,8 @@ from typing import NamedTuple
 import torch
 
 from . import binning as binning_mod
-from . import merge_cuda, segsum_cuda
+from . import merge_cuda, rasterize_cuda, relayout_cuda
 from .rasterize_cuda import REC_DIM
-
-# packed [N, 11] reference layout -> kernel record layout (depth/op swapped);
-# an involution, so it also maps kernel-layout gradients back.
-_PERM = (0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 9)
 
 
 class StagingStatic(NamedTuple):
@@ -48,7 +49,7 @@ class StagingStatic(NamedTuple):
     tile_w: int
     tile_h: int
     max_pairs: int
-    chunk: int  # trailing zero columns of the record buffer
+    chunk: int  # aligned layout's ownership quantum; sorted buffers' zero tail
 
 
 class SortedPairs(NamedTuple):
@@ -79,7 +80,7 @@ def merge_table(st: StagingStatic, packed, rect_min, rect_max, radii, depths):
     )
     keep = e.keep_idx
     f32 = torch.float32
-    rec_kernel = packed.detach()[:, list(_PERM)].to(f32)  # [N, 11]
+    rec_kernel = packed.detach()[:, list(rasterize_cuda.PERM)].to(f32)  # [N, 11]
     tbl = torch.cat(
         [
             torch.stack(
@@ -124,8 +125,7 @@ def _sorted_pairs(st: StagingStatic, packed, rect_min, rect_max, radii, depths):
     depth_keys = torch.where(valid, g[4], torch.full((), float("inf"), dtype=f32, device=dev))
 
     # --- 2. ONE stable sort on (tile, depth) --------------------------------
-    key = (tile_ids.to(torch.int64) << 32) | depth_keys.view(i32).to(torch.int64)
-    perm = torch.sort(key, stable=True).indices
+    perm = binning_mod.sort_pairs(tile_ids, depth_keys)
     sorted_tile = tile_ids[perm]
     sorted_depth = depth_keys[perm]
     rec_rows = g[6:17][:, perm]  # [11, max_pairs] kernel-layout records
@@ -136,10 +136,8 @@ def _sorted_pairs(st: StagingStatic, packed, rect_min, rect_max, radii, depths):
                       torch.full((), packed.shape[0], dtype=i32, device=dev))
 
     # --- 3. tile ranges -----------------------------------------------------
-    tile_iota = torch.arange(num_tiles, dtype=i32, device=dev)
-    tile_start = torch.searchsorted(sorted_tile, tile_iota, side="left").to(i32)
-    tile_end = torch.searchsorted(sorted_tile, tile_iota, side="right").to(i32)
-    return rec_rows, gid, tile_start, tile_end - tile_start, e
+    tile_start, tile_count = binning_mod.tile_ranges(sorted_tile, num_tiles)
+    return rec_rows, gid, tile_start, tile_count, e
 
 
 def stage_pairs_sorted(st: StagingStatic, packed, rect_min, rect_max, radii,
@@ -176,19 +174,9 @@ def _train_pad(st: StagingStatic) -> int:
     return -(-base // 512) * 512 - st.max_pairs
 
 
-def reduce_record_cotangent(g_cm: torch.Tensor, gid: torch.Tensor,
-                            num_rec: int) -> torch.Tensor:
-    """d packed [num_rec, 11] from the record-buffer cotangent [16, P] and the
-    per-column gaussian id [P] (``num_rec`` = no gaussian): the per-Gaussian
-    segment sum (K4, which also copies row 3 into row 4: both conic
-    off-diagonals get d_cs), then kernel layout -> packed layout."""
-    grad_rec = segsum_cuda.segment_reduce(g_cm, gid, num_rec)  # [N, 16]
-    return grad_rec[:, list(_PERM)]
-
-
 def _stage_train_impl(st: StagingStatic, packed, rect_min, rect_max, radii,
                       depths):
-    """Training staging without autograd: (SortedPairs with the
+    """Sorted training staging without autograd: (SortedPairs with the
     [16, max_pairs + _train_pad] buffer, gid_full [max_pairs + _train_pad]
     int32 with ``num_rec`` on columns of no gaussian)."""
     rec_rows, gid, tile_start, tile_count, e = _sorted_pairs(
@@ -211,25 +199,73 @@ def _stage_train_impl(st: StagingStatic, packed, rect_min, rect_max, radii,
     return staged, gid_full
 
 
-class _StageTrain(torch.autograd.Function):
-    """Training staging.  Forward: ``_stage_train_impl``; backward:
-    ``reduce_record_cotangent``.  Only ``packed`` is differentiable: rects,
-    radii and depths are staging machinery."""
+class StagedPairs(NamedTuple):
+    records_cm: torch.Tensor  # [16, _num_aligned(st)] chunk-aligned records
+    aligned_start: torch.Tensor  # [num_tiles] int32 chunk-aligned column starts
+    tile_count: torch.Tensor  # [num_tiles] int32 real pairs per tile
+    num_pairs: torch.Tensor  # [] int32
+    overflow_gaussians: torch.Tensor  # [] int32
+    overflow_pairs: torch.Tensor  # [] int32
+
+
+def _num_aligned(st: StagingStatic) -> int:
+    """Columns of the chunk-aligned buffer: each tile pads its pairs to whole
+    chunks, at most ``chunk`` columns more than it has."""
+    num_tiles = -(-st.image_width // st.tile_w) * -(-st.image_height // st.tile_h)
+    return st.max_pairs + num_tiles * st.chunk
+
+
+def _stage_impl(st: StagingStatic, packed, rect_min, rect_max, radii, depths):
+    """Aligned training staging without autograd: the sorted records, the
+    chunk plan, the relayout (K6) of the 11 record rows and the gaussian id
+    (row 11, an exact float value) into the [16, _num_aligned] buffer.
+    Returns (StagedPairs, gid_aligned [_num_aligned] int32 with ``num_rec``
+    on columns of no gaussian)."""
+    rec_rows, gid, tile_start, tile_count, e = _sorted_pairs(
+        st, packed, rect_min, rect_max, radii, depths
+    )
+    num_aligned = _num_aligned(st)
+    C = st.chunk
+    aligned_start, owner, rank0 = rasterize_cuda.aligned_chunk_plan(tile_count, C, num_aligned)
+    sorted_cm = torch.cat([rec_rows, gid.to(torch.float32)[None]], dim=0).contiguous()
+    records_cm = relayout_cuda.relayout(sorted_cm, tile_start, tile_count, owner, rank0, C,
+                                        num_aligned)
+    _, within = rasterize_cuda.aligned_slots(tile_start, tile_count, owner, rank0, C)
+    gid_aligned = torch.where(within, records_cm[11].to(torch.int32),
+                              torch.full((), packed.shape[0], dtype=torch.int32,
+                                         device=packed.device))
+    staged = StagedPairs(
+        records_cm=records_cm,
+        aligned_start=aligned_start,
+        tile_count=tile_count,
+        num_pairs=e.num_pairs,
+        overflow_gaussians=e.overflow_gaussians,
+        overflow_pairs=e.overflow_pairs,
+    )
+    return staged, gid_aligned
+
+
+class _Stage(torch.autograd.Function):
+    """Training staging, sorted (``_stage_train_impl``) or aligned
+    (``_stage_impl``).  Forward: the staging; backward:
+    ``rasterize_cuda.reduce_record_cotangent`` over the per-column gaussian
+    ids.  Only ``packed`` is differentiable: rects, radii and depths are
+    staging machinery."""
 
     @staticmethod
-    def forward(ctx, st, packed, rect_min, rect_max, radii, depths):
-        staged, gid_full = _stage_train_impl(
-            st, packed.detach(), rect_min, rect_max, radii, depths)
-        ctx.save_for_backward(gid_full)
+    def forward(ctx, impl, st, packed, rect_min, rect_max, radii, depths):
+        staged, gid = impl(st, packed.detach(), rect_min, rect_max, radii, depths)
+        ctx.save_for_backward(gid)
         ctx.num_rec = packed.shape[0]
         ctx.mark_non_differentiable(*staged[1:])
         return tuple(staged)
 
     @staticmethod
     def backward(ctx, g_records, *_):
-        (gid_full,) = ctx.saved_tensors
-        d_packed = reduce_record_cotangent(g_records.contiguous(), gid_full, ctx.num_rec)
-        return None, d_packed, None, None, None, None
+        (gid,) = ctx.saved_tensors
+        d_packed = rasterize_cuda.reduce_record_cotangent(g_records.contiguous(), gid,
+                                                          ctx.num_rec)
+        return None, None, d_packed, None, None, None, None
 
 
 def stage_pairs_train(st: StagingStatic, packed, rect_min, rect_max, radii,
@@ -238,4 +274,14 @@ def stage_pairs_train(st: StagingStatic, packed, rect_min, rect_max, radii,
     differentiable with respect to ``packed`` [N, 11] (reference layout).
     The buffer is [16, max_pairs + _train_pad(st)] in kernel layout, the JAX
     package's ``stage_pairs_train`` layout."""
-    return SortedPairs(*_StageTrain.apply(st, packed, rect_min, rect_max, radii, depths))
+    return SortedPairs(*_Stage.apply(_stage_train_impl, st, packed, rect_min, rect_max,
+                                     radii, depths))
+
+
+def stage_pairs(st: StagingStatic, packed, rect_min, rect_max, radii,
+                depths) -> StagedPairs:
+    """Aligned training staging (the JAX package's ``stage_pairs``):
+    chunk-aligned records [16, _num_aligned(st)], differentiable with
+    respect to ``packed`` [N, 11] (reference layout)."""
+    return StagedPairs(*_Stage.apply(_stage_impl, st, packed, rect_min, rect_max,
+                                     radii, depths))

@@ -1,12 +1,21 @@
 """Render: projection -> pair staging -> compositing (torch counterpart of
-the JAX package's ``render.py``, the fused sorted-order paths).
+the JAX package's ``render.py``).
 
-``render(..., inference=True)`` is the serving path: sorted-order staging
-with the merge-gather kernel, then the forward compositing kernel over
-unaligned tile ranges, all without gradients.  ``inference=False`` is the
-training path: the same staging as a differentiable ``autograd.Function``
-whose backward is the per-Gaussian segment sum, and the rasterizer's
-``autograd.Function`` (forward compositing, backward compositing).
+``RasterizerConfig`` names the record layout, as in the JAX package:
+
+* ``staging="fused"`` (the default), ``inference=True``, the serving path:
+  sorted-order staging with the merge-gather kernel (K2), then forward
+  compositing (K1) over unaligned tile ranges, without gradients.
+* ``staging="fused"``, training, ``train_staging="sorted"`` (the default):
+  the same staging as a differentiable ``autograd.Function`` whose backward
+  is the per-Gaussian segment sum (K4), and the rasterizer's
+  ``autograd.Function`` (K1 forward, K3 backward).
+  ``train_staging="aligned"``: the staging also relays the records out into
+  whole chunks per tile (K6), and the backward is K7.
+* ``staging="split"``, serving and training: ``binning.bin_gaussians``
+  (owner ranks by K5, one (tile, depth) sort of the gaussian ids), the
+  chunk-aligned record gather whose backward is K4, K1 forward and K7
+  backward (``rasterize_cuda.rasterize_split``).
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from .config import RasterizerConfig
+from .ops import binning as binning_mod
 from .ops import projection, rasterize_cuda, rasterize_ref
 from .ops import staging as staging_mod
 
@@ -78,23 +88,42 @@ def render(
         packed = rasterize_ref.pack_gaussians(
             p.means2d, p.conic, p.colors, opacity, p.depths
         )
-        sst = staging_mod.StagingStatic(
-            image_width=image_width,
-            image_height=image_height,
-            tile_w=cfg.tile_w,
-            tile_h=cfg.tile_h,
-            max_pairs=cfg.max_pairs,
-            chunk=cfg.chunk_size,
-        )
-        stage = staging_mod.stage_pairs_sorted if inference else staging_mod.stage_pairs_train
-        staged = stage(sst, packed, p.rect_min, p.rect_max, p.radii, p.depths)
-        out = rasterize_cuda.rasterize_staged(
-            staged.records_cm, staged.tile_start, staged.tile_count,
-            image_width, image_height, cfg.tile_w, cfg.tile_h,
-            alpha_clamp=cfg.alpha_clamp,
-            transmittance_eps=cfg.transmittance_eps,
-            undo_denom_floor=cfg.undo_denom_floor,
-        )
+        common = dict(chunk_size=cfg.chunk_size, alpha_clamp=cfg.alpha_clamp,
+                      transmittance_eps=cfg.transmittance_eps,
+                      undo_denom_floor=cfg.undo_denom_floor)
+        if cfg.staging == "split":
+            staged = binning_mod.bin_gaussians(
+                p.rect_min, p.rect_max, p.radii, p.depths, image_width, image_height,
+                cfg.tile_w, cfg.tile_h, cfg.max_pairs,
+            )
+            out = rasterize_cuda.rasterize_split(
+                packed, staged.sorted_gauss_idx, staged.tile_start, staged.tile_count,
+                image_width, image_height, cfg.tile_w, cfg.tile_h, **common,
+            )
+        else:
+            sst = staging_mod.StagingStatic(
+                image_width=image_width,
+                image_height=image_height,
+                tile_w=cfg.tile_w,
+                tile_h=cfg.tile_h,
+                max_pairs=cfg.max_pairs,
+                chunk=cfg.chunk_size,
+            )
+            geom = (sst, packed, p.rect_min, p.rect_max, p.radii, p.depths)
+            if inference:
+                staged = staging_mod.stage_pairs_sorted(*geom)
+                starts, sorted_mode = staged.tile_start, True
+            elif cfg.train_staging == "sorted":
+                staged = staging_mod.stage_pairs_train(*geom)
+                starts, sorted_mode = staged.tile_start, True
+            else:
+                staged = staging_mod.stage_pairs(*geom)
+                starts, sorted_mode = staged.aligned_start, False
+            out = rasterize_cuda.rasterize_staged(
+                staged.records_cm, starts, staged.tile_count,
+                image_width, image_height, cfg.tile_w, cfg.tile_h,
+                sorted_mode=sorted_mode, **common,
+            )
         out = out._replace(color=rasterize_ref.apply_background(
             out.color, out.alpha, white_background))
     aux = RenderAux(

@@ -2,16 +2,19 @@
 """Where the time of the port's training step goes, on one NVIDIA GPU.
 
     python3 scripts/torch_train_profile.py [--steps 5] [--out profile.json]
+        [--layout sorted aligned split]
 
 Builds the training setup of ``chip_smoke.py`` (the bench scene, 4 orbit
 targets at 800x800, a Trainer from its 100,000 points at SH3 with the
-probed pair budget), runs 5 warm-up steps, times ``--steps`` steps on the
-host clock (``torch.cuda.synchronize()`` at both ends), then profiles the
-same number of steps with ``torch.profiler``.  Prints device time by kernel
+probed pair budget), then for each record layout (``sorted`` the default;
+``aligned`` and ``split`` as ``config.LAYOUTS`` selects them, at the
+same budget) runs 5 warm-up steps, times ``--steps`` steps on the host
+clock (``torch.cuda.synchronize()`` at both ends), then profiles the same
+number of steps with ``torch.profiler``.  Prints device time by kernel
 (self device time of the device-side events, summed per name), device busy
 time per step, wall time per step and the device's idle share
 (1 - busy / wall); ``--out`` also writes them, with every kernel name, as
-JSON.  Imports no JAX.
+JSON (one object per layout).  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -33,31 +36,48 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default=None, help="write the result as JSON here")
+    ap.add_argument("--layout", nargs="+", default=["sorted"],
+                    choices=["sorted", "aligned", "split"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     import chip_smoke as smoke
+    from gaussiansplattingmlx_tpu_torch import config
 
     device = torch.device("cuda:0")
     gpu = smoke.gpu_line()
+    results = []
     with tempfile.TemporaryDirectory(prefix="train_profile_") as tmp:
         ply_path = Path(tmp) / "bench_scene.ply"
         smoke.bench_scene(ply_path)
         data = smoke.orbit_targets(ply_path, device)
         trainer, peak, _ = smoke.training_setup(ply_path, data, device)
-        steps = args.steps
-        trainer.run(5)  # warm-up
+        max_pairs = trainer.cfg.raster.max_pairs
+        for layout in args.layout:
+            if layout != "sorted":
+                trainer = smoke.make_trainer(ply_path, data, device, **config.LAYOUTS[layout])
+                trainer.set_max_pairs(max_pairs)
+            results.append(profile(trainer, args.steps, layout, peak, gpu))
+    if args.out:
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(results, indent=1))
+    return 0
+
+
+def profile(trainer, steps, layout, peak, gpu) -> dict:
+    trainer.run(5)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.run(5 + steps)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer.run(5 + 2 * steps)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.run(5 + steps)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            trainer.run(5 + 2 * steps)
-            torch.cuda.synchronize()
     # Device-side events only (kernels, memcpy, memset): the CPU-side ops
     # that launched them report the same device time again.
     rows = []
@@ -74,22 +94,20 @@ def main(argv=None) -> int:
     busy_ms = sum(r["ms_per_step"] for r in rows)
     events = sum(r["calls"] for r in rows)
     result = {
-        "gpu": gpu, "steps": steps, "max_pairs": trainer.cfg.raster.max_pairs,
+        "layout": layout, "gpu": gpu, "steps": steps,
+        "max_pairs": trainer.cfg.raster.max_pairs,
         "probe_peak_pairs": peak, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms, "device_events_per_step": events,
         "idle_share": (1.0 - busy_ms / wall_ms) if wall_ms > 0 else None,
         "kernels": rows,
     }
+    print(f"layout {layout}:")
     for r in rows[:15]:
         print(f"{r['ms_per_step']:9.4f} ms/step  {r['calls']:5d} calls  {r['name'][:90]}")
     print(f"wall {wall_ms:.3f} ms/step (unprofiled), device busy {busy_ms:.3f} ms/step "
           f"over {events} device events, idle share {result['idle_share']:.3f} | {gpu}")
-    if args.out:
-        out = Path(args.out)
-        out.parent.mkdir(parents=True, exist_ok=True)
-        out.write_text(json.dumps(result, indent=1))
-    print(json.dumps({k: v for k, v in result.items() if k != "kernels"}))
-    return 0
+    print(json.dumps({k: v for k, v in result.items() if k != "kernels"}), flush=True)
+    return result
 
 
 if __name__ == "__main__":

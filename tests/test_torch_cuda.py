@@ -266,3 +266,122 @@ def test_train_step_card_matches_cpu():
         got = to_numpy(getattr(gs.params, name))
         want = to_numpy(getattr(cs.params, name))
         np.testing.assert_allclose(got[big], want[big], rtol=1e-5, atol=1e-7, err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["saturated", "dense"])
+def test_merge_ranks_kernel_matches_plain(case):
+    require_cuda()
+    gen = torch.Generator().manual_seed(13)
+    if case == "saturated":
+        n = 5000
+        foot = torch.randint(1, 9, (n,), generator=gen)
+        foot[3000] = 2 ** 31 - 1
+        cum = binning._saturating_cumsum(foot)
+        cum[-500:] = binning._CUM_CLAMP + 1
+        budgets = (int(cum[2999]) - 777, int(cum[2999]) + 1001)
+    else:
+        cum = torch.arange(1, 3000, dtype=torch.int32)
+        budgets = (512, 4096)
+    for budget in budgets:
+        before = merge_cuda.RANKS_KERNEL.launches
+        got = merge_cuda.merge_ranks(cum.cuda(), budget)
+        torch.cuda.synchronize()
+        assert merge_cuda.RANKS_KERNEL.launches == before + 1
+        assert torch.equal(got.cpu(), merge_cuda.merge_ranks_plain(cum, budget))
+
+
+@pytest.mark.parametrize("chunk", [32, 128])
+def test_relayout_kernel_matches_plain(chunk):
+    """Aligned staging on the card (K6) against K6's plain version on the
+    same sorted records and plan, bit for bit: rows 0-11 (row 11 the
+    gaussian id) and the zero columns."""
+    require_cuda()
+    from gaussiansplattingmlx_tpu_torch.ops import relayout_cuda
+
+    st, args, _ = _staged(300, 3, 100, 72, 16, 8192, "cuda")
+    st = st._replace(chunk=chunk)
+    rec_rows, gid, start, count, _ = staging._sorted_pairs(st, *args)
+    num_aligned = staging._num_aligned(st)
+    _, owner, rank0 = rasterize_cuda.aligned_chunk_plan(count, chunk, num_aligned)
+    sorted_cm = torch.cat([rec_rows, gid.to(torch.float32)[None]]).contiguous()
+    before = relayout_cuda.KERNEL.launches
+    got = relayout_cuda.relayout(sorted_cm, start, count, owner, rank0, chunk, num_aligned)
+    torch.cuda.synchronize()
+    assert relayout_cuda.KERNEL.launches == before + 1
+    want = relayout_cuda.relayout_plain(sorted_cm, start, count, owner, rank0, chunk,
+                                        num_aligned)
+    assert _bit_equal(got, want)
+    sp, gid_aligned = staging._stage_impl(st, *args)
+    assert _bit_equal(sp.records_cm, want)
+    assert int((gid_aligned < 300).sum()) == int(sp.num_pairs) > 0
+
+
+@pytest.mark.parametrize("tile,chunk", [(16, 32), (16, 128), (32, 128)])
+def test_raster_bwd_aligned_kernel_matches_plain(tile, chunk):
+    """K7 on an aligned training buffer: bit-identical over two launches,
+    within the gradient tolerance of its plain version, zero in every column
+    it does not replay, and bit-equal to K3 run over the same buffer with the
+    aligned starts (the two share their device code)."""
+    require_cuda()
+    width, height = 100, 72
+    st, args, _ = _staged(300, 13, width, height, tile, 8192, "cuda")
+    st = st._replace(chunk=chunk)
+    sp, _ = staging._stage_impl(st, *args)
+    grid_w, grid_h = -(-width // tile), -(-height // tile)
+    fwd = rasterize_cuda.raster_fwd(sp.records_cm, sp.aligned_start, sp.tile_count,
+                                    grid_w, grid_h, tile, tile)
+    cot = torch.randn(fwd.shape, generator=torch.Generator().manual_seed(tile)).cuda()
+    block = rasterize_cuda.cotangent_block(cot, fwd[:, 4:6])
+    args = (sp.records_cm, sp.aligned_start, sp.tile_count, block, grid_w, grid_h, tile, tile)
+    # Garbage in a reused allocation must not survive: K7 writes every column.
+    torch.full((16, sp.records_cm.shape[1]), float("nan"), device="cuda")
+    before = rasterize_cuda.BWD_ALIGNED_KERNEL.launches
+    got = rasterize_cuda.raster_bwd_aligned(*args, chunk)
+    again = rasterize_cuda.raster_bwd_aligned(*args, chunk)
+    torch.cuda.synchronize()
+    assert rasterize_cuda.BWD_ALIGNED_KERNEL.launches == before + 2
+    assert _bit_equal(got, again), "two launches differ"
+    assert bool(torch.isfinite(got).all())
+    assert _bit_equal(got, rasterize_cuda.raster_bwd(*args))
+    # A random cotangent on alpha reaches pixels that end near T = 1e-6,
+    # where rebuilding T from the stored alpha loses a few percent (ROADMAP.md
+    # §C): the JAX package's early-exit tolerance, rtol 5e-3 / atol 5e-4.
+    _assert_rows_close(got, rasterize_cuda.raster_bwd_plain(*args),
+                       rtol=5e-3, atol=5e-4)
+    valid = torch.zeros(got.shape[1], dtype=torch.bool)
+    for s, c in zip(sp.aligned_start.tolist(), sp.tile_count.tolist()):
+        valid[s:s + c] = True
+    assert bool((got[:, ~valid.cuda()] == 0).all()) and bool((got[11:] == 0).all())
+
+
+@pytest.mark.parametrize("layout", ["aligned", "split"])
+def test_train_step_layout_card_matches_cpu(layout):
+    """One training step per non-default layout on the card (K5 or K6, K7)
+    and on the CPU: the same loss and pair count, and K7 launched once."""
+    require_cuda()
+    from gaussiansplattingmlx_tpu_torch import config
+    from gaussiansplattingmlx_tpu_torch.data.dataset import TrainData
+    from gaussiansplattingmlx_tpu_torch.train import trainer
+
+    params, c2w = scene_numpy(n=300, seed=5, sh_degree=3, sh_rest_scale=0.1)
+    images = np.random.default_rng(1).uniform(size=(1, 72, 100, 3)).astype(np.float32)
+    data = TrainData([Camera.from_c2w(100, 72, 60.0, 60.0, c2w)], images)
+    cfg = config.TrainConfig(iterations=10, model=config.ModelConfig(sh_degree=3),
+                             raster=config.RasterizerConfig(max_pairs=8192,
+                                                            **config.LAYOUTS[layout]))
+    raw = {f"param_{k}": v for k, v in params.items()}
+    raw.update({f"adam_{m}_{k}": np.zeros_like(v) for k, v in params.items() for m in "mv"})
+    raw.update(adam_count=0, num_active=300, grad_accum=np.zeros(300), grad_denom=0.0,
+               step=0, overflow_acc=np.zeros(2))
+    results = []
+    for device in ("cpu", "cuda"):
+        before = rasterize_cuda.BWD_ALIGNED_KERNEL.launches
+        state = trainer.state_from_numpy(raw, device)
+        step = trainer.make_train_step(cfg, 100, 72, 3, 10)
+        _, metrics, _ = step(state, trainer.stack_views(data, device), 0)
+        results.append({k: float(v) for k, v in metrics.items()})
+    assert rasterize_cuda.BWD_ALIGNED_KERNEL.launches == before + 1
+    cm, gm = results
+    assert gm["num_pairs"] == cm["num_pairs"] > 0 and gm["overflow_pairs"] == 0
+    np.testing.assert_allclose(gm["loss"], cm["loss"], rtol=1e-4)
+    assert gm["grad_coverage"] > 0

@@ -189,14 +189,15 @@ def test_create_from_points_matches_jax():
     pts[7] = pts[3]  # a duplicate point: distance 0 hits the dist2 floor
     cols = rng.uniform(size=(300, 3)).astype(np.float32)
     want, n_want = jax_gaussians.create_from_points(pts, cols, sh_degree=2, capacity=512)
-    got, n_got = gaussians.create_from_points(pts, cols, sh_degree=2, capacity=512)
+    got, n_got = gaussians.create_from_points(pts, cols, sh_degree=2, capacity=512,
+                                              device="cpu")
     assert n_got == n_want == 300 and got.capacity == 512
     for name in gaussians.PARAM_NAMES:
         np.testing.assert_allclose(to_numpy(getattr(got, name)),
                                    np.asarray(getattr(want, name)), rtol=1e-5, atol=1e-7,
                                    err_msg=name)
     np.testing.assert_array_equal(to_numpy(got.rotation)[300:], [[1, 0, 0, 0]] * 212)
-    np.testing.assert_allclose(gaussians.knn_mean_sq_dist(pts[:40], k=3),
+    np.testing.assert_allclose(gaussians.knn_mean_sq_dist(pts[:40], k=3, device="cpu"),
                                jax_gaussians.knn_mean_sq_dist(pts[:40], k=3), rtol=1e-5)
     mask = gaussians.active_mask(512, torch.tensor(300, dtype=torch.int32))
     np.testing.assert_array_equal(

@@ -160,7 +160,8 @@ def synthetic():
     rng = np.random.default_rng(42)
     pts = rng.normal(size=(60, 3)).astype(np.float32) * 0.5
     cols = rng.uniform(0.1, 0.9, size=(60, 3)).astype(np.float32)
-    params, _ = gaussians.create_from_points(pts, cols, sh_degree=0, capacity=60)
+    params, _ = gaussians.create_from_points(pts, cols, sh_degree=0, capacity=60,
+                                              device="cpu")
     with torch.no_grad():
         params.scales.fill_(float(np.log(0.15)))
         params.opacity.fill_(2.0)
@@ -215,6 +216,36 @@ def test_trainer_overflow_auto_grow(synthetic, capsys):
     assert tr.cfg.raster.max_pairs > 128
     assert log[0]["overflow_pairs"] > 0 and log[-1]["overflow_pairs"] == 0
     assert "WARNING: pair-budget overflow" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("layout", list(config.LAYOUTS))
+def test_trainer_budget_grows_and_shrinks_per_layout(synthetic, capsys, layout):
+    """Auto-grow from a tight budget, then auto-shrink from an oversized one,
+    in every record layout (the aligned buffers are num_tiles * chunk
+    columns wider than max_pairs): every step after each change runs at the
+    new budget with no overflow."""
+    pts, cols, cams, images = synthetic
+    raster = config.RasterizerConfig(**dict(RASTER, max_pairs=128), max_pairs_limit=4096,
+                                     **config.LAYOUTS[layout])
+    tr = trainer.Trainer(_cfg(iterations=16, log_interval=1, raster=raster),
+                         TrainData(cams, images), PointCloud(pts, cols * 255.0),
+                         device="cpu")
+    log = []
+    tr.run(3, on_metrics=log.append)
+    grown = tr.cfg.raster.max_pairs
+    assert grown > 128 and log[0]["overflow_pairs"] > 0
+    assert all(m["overflow_pairs"] == 0 for m in log[1:])
+    assert "WARNING: pair-budget overflow" in capsys.readouterr().err
+    # Oversize the budget: after 8 logged steps under half its use, it
+    # shrinks to 1.4x the observed peak (the configured 128 is the floor).
+    tr.cfg = dataclasses.replace(
+        tr.cfg, raster=dataclasses.replace(tr.cfg.raster, max_pairs=8 * grown))
+    tr._build_train_step()
+    tr.run(16, on_metrics=log.append)
+    assert "shrinking max_pairs" in capsys.readouterr().err
+    assert 128 < tr.cfg.raster.max_pairs < 8 * grown
+    assert all(np.isfinite(m["loss"]) and m["overflow_pairs"] == 0 for m in log[1:])
+    assert log[-1]["overflow_pairs_acc"] == log[0]["overflow_pairs_acc"] > 0
 
 
 @pytest.mark.parametrize("change,match", [
