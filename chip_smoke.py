@@ -13,15 +13,16 @@ and checks each against its plain PyTorch version at the shapes of its path:
   plus a 16-frame throughput loop;
 * K3 backward compositing and K4 per-Gaussian segment sum on the training
   buffers of the bench camera (the cotangent of the real L1 + SSIM loss),
-  K3 also at tile 32 on a small scene; K5 merge ranks, K6 relayout and K7
-  aligned backward on the same camera's split-layout ranks and aligned
-  buffers; then the training path through its entry point
-  (``train.trainer.Trainer.run``): 20 steps at 800x800, SH3, tile 32, from
-  a 100,000-point cloud of the bench scene, against targets rendered by the
-  port from 4 orbit views, in the default sorted layout and again in each
-  non-default layout (``train_staging="aligned"``: K6 and K7;
-  ``staging="split"``: K5 and K7), each kernel first checked on that run's
-  own first-step buffers and the layouts' losses held to the sorted run's;
+  K3 also at tile 32 on a small scene; K5 merge ranks (timed at the serving
+  budget), K6 relayout and K7 aligned backward on the same camera's
+  split-layout ranks and aligned buffers; then the training path through
+  its entry point (``train.trainer.Trainer.run``): 20 steps at 800x800,
+  SH3, tile 32, from a 100,000-point cloud of the bench scene, against
+  targets rendered by the port from 4 orbit views, in the default sorted
+  layout and again in each non-default layout (``train_staging="aligned"``:
+  K6 and K7; ``staging="split"``: K5 and K7), each kernel first checked on
+  that run's own first-step buffers and the layouts' losses held to the
+  sorted run's; the kernels line times K3, K5, K6 and K7 on those buffers;
 * the split layout's serving path: ``render_many`` over 16 orbit frames of
   the bench scene with ``RasterizerConfig(staging="split")``.
 
@@ -88,6 +89,10 @@ K1_OPS, K3_OPS = 24, 60
 # sorted run's (the CPU tests' step-parity tolerance).
 LOSS_RTOL = 1e-4
 SPLIT_FRAMES = 16
+# The design of the backward replay K3 and K7 share (rasterize_bwd_tile.cuh),
+# named in the kernels line.
+BWD_DESIGN = ("replay: 2 pixels a thread at tile 16 (128 threads), 4 at tile 32 (256), "
+              "transposed warp reduction over groups of 3 records")
 
 
 class SmokeFailure(RuntimeError):
@@ -107,9 +112,43 @@ def gpu_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def device_ms(fn, calls: int = 8, reps: int = 5) -> float:
+    """Median device milliseconds of one fn() call: ``calls`` calls captured
+    into one CUDA graph, replayed ``reps`` times between CUDA events after a
+    warm-up replay, so the host's launch overhead (the Python wrapper, the
+    ctypes call) stays off the device's timeline.  fn must not synchronise
+    with the host."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return float(np.median(times))
+
+
+def kernel_ms(fn) -> dict:
+    """A kernel wrapper's times: ``ms`` its device time (``device_ms``),
+    ``call_ms`` one call between CUDA events, the host's launch overhead
+    included (``cuda_ms``, the method of PERF.md's earlier kernel times)."""
+    return {"ms": device_ms(fn), "call_ms": cuda_ms(fn)}
+
+
 def cuda_ms(fn, reps: int = 5) -> float:
-    """Median milliseconds of fn() over reps runs, timed with CUDA events
-    after one warm-up run."""
+    """Median milliseconds of fn() over reps runs, each a call between CUDA
+    events after one warm-up run: the device's time plus whatever of the
+    host's launch overhead it waits for."""
     fn()
     times = []
     for _ in range(reps):
@@ -211,7 +250,7 @@ def check_merge(args, st, device):
     want = merge_cuda.merge_gather_plain(e.cum_keep, tbl, max_pairs)
     torch.cuda.synchronize()
     require(bit_equal(got, want), "merge_gather kernel != plain on the slice inputs")
-    ms = cuda_ms(lambda: merge_cuda.merge_gather(e.cum_keep, tbl, max_pairs))
+    times = kernel_ms(lambda: merge_cuda.merge_gather(e.cum_keep, tbl, max_pairs))
     plain_ms = cuda_ms(lambda: merge_cuda.merge_gather_plain(e.cum_keep, tbl, max_pairs))
 
     # Synthetic cases: saturated cumsum entries and compacted-away pads under
@@ -239,9 +278,10 @@ def check_merge(args, st, device):
     # byte time, so the bound is the bytes (cum and table in, output out).
     lim = bound(4.0 * (n_tbl + rows * n_tbl + rows * max_pairs), 0.0)
     print(f"merge_gather: bit-exact vs plain on {n_tbl} gaussians x {max_pairs} slots "
-          f"and on two synthetic budgets; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']})", flush=True)
-    return {"max_abs_err": float((got - want).abs().max()), "ms": ms, "plain_ms": plain_ms,
+          f"and on two synthetic budgets; kernel {times['ms']:.4f} ms (a call "
+          f"{times['call_ms']:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})", flush=True)
+    return {"max_abs_err": float((got - want).abs().max()), **times, "plain_ms": plain_ms,
             **lim, "library_ms": None}
 
 
@@ -265,7 +305,7 @@ def check_raster(args, st):
     mismatch = float((got[:, 5] != want[:, 5]).float().mean())
     require(mismatch <= NCON_MISMATCH, f"n_contrib mismatch {mismatch}")
     err = float((got[:, :5] - want[:, :5]).abs().max())
-    ms = cuda_ms(lambda: rasterize_cuda.raster_fwd(*fargs))
+    times = kernel_ms(lambda: rasterize_cuda.raster_fwd(*fargs))
     plain_ms = cuda_ms(lambda: rasterize_cuda.raster_fwd_plain(*fargs), reps=3)
     pairs = int(staged.num_pairs)
     taken = float(got[:, 5].sum())
@@ -273,9 +313,10 @@ def check_raster(args, st):
     lim = bound(4.0 * (11 * pairs + 2 * grid_w * grid_h + got.numel()), K1_OPS * taken)
     print(f"raster_fwd: within tolerance of plain on {pairs} pairs "
           f"(max abs err {err:.3g}, n_contrib mismatch {mismatch:.2e}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms "
-          f"({lim['bound_by']}, {taken:.0f} pixel-records taken)", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None}
+          f"kernel {times['ms']:.4f} ms (a call {times['call_ms']:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}, "
+          f"{taken:.0f} pixel-records taken)", flush=True)
+    return {"max_abs_err": err, **times, "plain_ms": plain_ms, **lim, "library_ms": None}
 
 
 def check_small_render(device):
@@ -347,11 +388,25 @@ def loss_cotangent_block(records_cm, tile_start, tile_count, width, height, tile
     return rasterize_cuda.cotangent_block(cot, out[:, 4:6]), out
 
 
+def bwd_bound(block, tile_count, out_numel):
+    """K3's and K7's bound on a buffer: 11 record rows of every replayed pair,
+    the cotangent block, tile ranges and the whole [16, P] output;
+    K3_OPS per pixel-record taken.  Returns (bound entry, pixel-records
+    taken, pairs replayed)."""
+    ncon = block[:, :, 6]
+    taken = float(ncon.sum())
+    replayed = int(torch.minimum(ncon.max(dim=1).values.to(torch.int32), tile_count).sum())
+    lim = bound(4.0 * (11 * replayed + block.numel() + 2 * tile_count.numel() + out_numel),
+                K3_OPS * taken)
+    return lim, taken, replayed
+
+
 def check_raster_bwd(args, st, target, device):
     """K3 against its plain version on the bench camera's training buffer
-    with the L1 + SSIM cotangent (tile 16), and on a small scene at tile 32;
-    two launches must be bit-identical.  Returns (the kernel line entry, the
-    training buffer's gid and K3 rows for the K4 check)."""
+    with the L1 + SSIM cotangent (tile 16), and on a small scene at tile 32
+    whose size is no multiple of the tile; two launches must be
+    bit-identical.  Returns (this check's times, the training buffer's gid
+    and K3 rows for the K4 check)."""
     from gaussiansplattingmlx_tpu_torch.ops import rasterize_cuda, staging
 
     with torch.no_grad():
@@ -371,7 +426,7 @@ def check_raster_bwd(args, st, target, device):
             "raster_bwd: two launches differ")
     assert_rows_close(got, want, "raster_bwd at tile 16")
     err = float((got - want).abs().max())
-    ms = cuda_ms(lambda: rasterize_cuda.raster_bwd(*bargs))
+    times = kernel_ms(lambda: rasterize_cuda.raster_bwd(*bargs))
     plain_ms = cuda_ms(lambda: rasterize_cuda.raster_bwd_plain(*bargs), reps=3)
 
     # Tile 32 on a small scene, same checks.
@@ -408,21 +463,18 @@ def check_raster_bwd(args, st, target, device):
             "raster_bwd tile 32: two launches differ")
     assert_rows_close(g32, w32_plain, "raster_bwd at tile 32")
 
-    ncon = block[:, :, 6]
-    taken = float(ncon.sum())
-    replayed = int(torch.minimum(ncon.max(dim=1).values.to(torch.int32), sp.tile_count).sum())
-    # Bytes: 11 record rows of every replayed pair, the cotangent block, tile
-    # ranges, and the whole [16, P] output.
-    lim = bound(4.0 * (11 * replayed + block.numel() + 2 * grid_w * grid_h + got.numel()),
-                K3_OPS * taken)
-    print(f"raster_bwd: within rtol {GRAD_RTOL} / scaled atol {GRAD_ATOL} of plain on "
-          f"{int(sp.num_pairs)} pairs (L1+SSIM cotangent, tile 16; max abs err {err:.3g}) "
-          f"and on {int(sp32.num_pairs)} pairs at tile 32; bit-identical repeats; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms "
-          f"({lim['bound_by']}, {taken:.0f} pixel-records, {replayed} pairs replayed)",
+    lim, taken, replayed = bwd_bound(block, sp.tile_count, got.numel())
+    print(f"raster_bwd (bench camera): within rtol {GRAD_RTOL} / scaled atol {GRAD_ATOL} of "
+          f"plain on {int(sp.num_pairs)} pairs (L1+SSIM cotangent, tile 16; max abs err "
+          f"{err:.3g}) and on {int(sp32.num_pairs)} pairs at tile 32 ({w32}x{h32}); "
+          f"bit-identical repeats; kernel {times['ms']:.4f} ms (a call "
+          f"{times['call_ms']:.4f} ms), plain {plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} "
+          f"ms ({lim['bound_by']}, {taken:.0f} pixel-records, {replayed} pairs replayed)",
           flush=True)
-    entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None}
-    return entry, gid, got
+    bench = {"bench_tile16_ms": times["ms"], "bench_tile16_call_ms": times["call_ms"],
+             "bench_tile16_plain_ms": plain_ms,
+             "bench_tile16_bound_ms": lim["bound_ms"], "bench_tile16_max_abs_err": err}
+    return bench, gid, got
 
 
 def check_segsum(gid, rows, num_rec):
@@ -440,7 +492,7 @@ def check_segsum(gid, rows, num_rec):
     torch.testing.assert_close(got, want, rtol=SEGSUM_RTOL,
                                atol=SEGSUM_ATOL * float(want.abs().max()))
     err = float((got - want).abs().max())
-    ms = cuda_ms(lambda: segsum_cuda.segment_sum_sorted(rows_s, offsets))
+    times = kernel_ms(lambda: segsum_cuda.segment_sum_sorted(rows_s, offsets))
     plain_ms = cuda_ms(lambda: segsum_cuda.segment_sum_sorted_plain(rows_s, offsets))
     used = int(offsets[-1])
     lengths = (offsets[1:] - offsets[:-1]).long()
@@ -448,51 +500,64 @@ def check_segsum(gid, rows, num_rec):
     library = torch.segment_reduce(data, "sum", lengths=lengths)
     torch.testing.assert_close(library, got[:, list(segsum_cuda.LIVE_ROWS)],
                                rtol=SEGSUM_RTOL, atol=SEGSUM_ATOL * float(want.abs().max()))
-    library_ms = cuda_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths))
+    # unsafe=True skips the call's host-side checks of lengths (a device
+    # sync, which a CUDA graph cannot hold); the call above made them.
+    library_ms = device_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths,
+                                                        unsafe=True))
+    library_call_ms = cuda_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths))
     live = len(segsum_cuda.LIVE_ROWS)
     lim = bound(4.0 * (live * used + offsets.numel() + got.numel()), live * used)
     print(f"segsum: within rtol {SEGSUM_RTOL} of plain on {used} pairs into {num_rec} "
-          f"gaussians; bit-identical repeats; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.segment_reduce {library_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms "
-          f"({lim['bound_by']})", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **lim,
-            "library_ms": library_ms}
+          f"gaussians; bit-identical repeats; kernel {times['ms']:.4f} ms (a call "
+          f"{times['call_ms']:.4f} ms), plain {plain_ms:.4f} ms, torch.segment_reduce "
+          f"{library_ms:.4f} ms (a call {library_call_ms:.4f} ms), bound "
+          f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})", flush=True)
+    return {"max_abs_err": err, **times, "plain_ms": plain_ms, **lim,
+            "library_ms": library_ms, "library_call_ms": library_call_ms}
 
 
 def bit_equal(a, b) -> bool:
     return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def check_merge_ranks(args, st):
-    """K5 against its plain version on the bench camera's compacted cumsum
-    at the serving budget, bit for bit; torch.searchsorted as the
-    yardstick."""
-    from gaussiansplattingmlx_tpu_torch.ops import binning, merge_cuda
+def check_merge_ranks(cum, max_pairs, what):
+    """K5 against its plain version and torch.searchsorted, bit for bit, on a
+    compacted cumsum and pair budget; timed beside both.  Returns the times
+    and the bound."""
+    from gaussiansplattingmlx_tpu_torch.ops import merge_cuda
 
-    packed, rect_min, rect_max, radii, _ = args
-    with torch.no_grad():
-        e = binning.expand_pairs(rect_min, rect_max, radii, st.image_width, st.image_height,
-                                 st.tile_w, st.tile_h, st.max_pairs)
-    cum, max_pairs = e.cum_keep, st.max_pairs
     got = merge_cuda.merge_ranks(cum, max_pairs)
     want = merge_cuda.merge_ranks_plain(cum, max_pairs)
     slots = torch.arange(max_pairs, dtype=torch.int32, device=cum.device)
     library = torch.searchsorted(cum, slots, right=True, out_int32=True)
     torch.cuda.synchronize()
-    require(torch.equal(got, want), "merge_ranks kernel != plain on the bench camera")
-    require(torch.equal(got, library), "merge_ranks kernel != torch.searchsorted")
-    ms = cuda_ms(lambda: merge_cuda.merge_ranks(cum, max_pairs))
+    require(torch.equal(got, want), f"merge_ranks kernel != plain ({what})")
+    require(torch.equal(got, library), f"merge_ranks kernel != torch.searchsorted ({what})")
+    times = kernel_ms(lambda: merge_cuda.merge_ranks(cum, max_pairs))
     plain_ms = cuda_ms(lambda: merge_cuda.merge_ranks_plain(cum, max_pairs))
-    library_ms = cuda_ms(lambda: torch.searchsorted(cum, slots, right=True, out_int32=True))
-    # About log2(n) integer compares per slot: the bytes bound it (cum read
-    # once, the ranks written once).
+    library = kernel_ms(lambda: torch.searchsorted(cum, slots, right=True, out_int32=True))
+    # A few integer compares per slot: the bytes bound it (cum read once,
+    # the ranks written once).
     lim = bound(4.0 * (cum.numel() + max_pairs), 0.0)
     print(f"merge_ranks: bit-exact vs plain and torch.searchsorted on {cum.numel()} "
-          f"gaussians x {max_pairs} slots; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.searchsorted {library_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms "
-          f"({lim['bound_by']})", flush=True)
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **lim,
-            "library_ms": library_ms}
+          f"gaussians x {max_pairs} slots ({what}); kernel {times['ms']:.4f} ms (a call "
+          f"{times['call_ms']:.4f} ms), plain {plain_ms:.4f} ms, torch.searchsorted "
+          f"{library['ms']:.4f} ms (a call {library['call_ms']:.4f} ms), bound "
+          f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})", flush=True)
+    return {"max_abs_err": 0.0, **times, "plain_ms": plain_ms, **lim,
+            "library_ms": library["ms"], "library_call_ms": library["call_ms"]}
+
+
+def serving_cumsum(args, st):
+    """The bench camera's compacted footprint cumsum at the serving budget,
+    the input of K5 on the split serving path."""
+    from gaussiansplattingmlx_tpu_torch.ops import binning
+
+    _, rect_min, rect_max, radii, _ = args
+    with torch.no_grad():
+        e = binning.expand_pairs(rect_min, rect_max, radii, st.image_width, st.image_height,
+                                 st.tile_w, st.tile_h, st.max_pairs)
+    return e.cum_keep
 
 
 def relayout_inputs(args, st):
@@ -526,15 +591,15 @@ def check_relayout(args, st, what, timed=True):
     if not timed:
         print(line, flush=True)
         return None
-    ms = cuda_ms(lambda: relayout_cuda.relayout(*rargs))
+    times = kernel_ms(lambda: relayout_cuda.relayout(*rargs))
     plain_ms = cuda_ms(lambda: relayout_cuda.relayout_plain(*rargs))
     rows, nchunks, ntiles = rargs[0].shape[0], rargs[3].numel(), rargs[1].numel()
     # Bytes: the copied columns' rows read once, the [16, num_aligned]
     # output written once, the chunk plan and tile ranges read once.
     lim = bound(4.0 * (rows * pairs + 16 * num_aligned + 2 * nchunks + 2 * ntiles), 0.0)
-    print(f"{line}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})", flush=True)
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None}
+    print(f"{line}; kernel {times['ms']:.4f} ms (a call {times['call_ms']:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms ({lim['bound_by']})", flush=True)
+    return {"max_abs_err": 0.0, **times, "plain_ms": plain_ms, **lim, "library_ms": None}
 
 
 def check_raster_bwd_aligned(records_cm, aligned_start, tile_count, tile, chunk, target,
@@ -570,21 +635,16 @@ def check_raster_bwd_aligned(records_cm, aligned_start, tile_count, tile, chunk,
     if not timed:
         print(line, flush=True)
         return None
-    ms = cuda_ms(lambda: rasterize_cuda.raster_bwd_aligned(*bargs, chunk))
-    k3_ms = cuda_ms(lambda: rasterize_cuda.raster_bwd(*bargs))
-    ncon = block[:, :, 6]
-    taken = float(ncon.sum())
-    replayed = int(torch.minimum(ncon.max(dim=1).values.to(torch.int32), tile_count).sum())
-    # As K3's bound: 11 record rows of every replayed pair, the cotangent
-    # block, tile ranges and the whole [16, P] output; 60 operations per
-    # pixel-record taken.
-    lim = bound(4.0 * (11 * replayed + block.numel() + 2 * grid_w * grid_h + got.numel()),
-                K3_OPS * taken)
-    print(f"{line}; kernel {ms:.4f} ms (raster_bwd on the same buffer {k3_ms:.4f} ms), "
-          f"plain {plain_ms:.4f} ms (one run), bound {lim['bound_ms']:.4f} ms "
+    times = kernel_ms(lambda: rasterize_cuda.raster_bwd_aligned(*bargs, chunk))
+    k3_ms = device_ms(lambda: rasterize_cuda.raster_bwd(*bargs))
+    lim, taken, replayed = bwd_bound(block, tile_count, got.numel())
+    print(f"{line}; kernel {times['ms']:.4f} ms (a call {times['call_ms']:.4f} ms; "
+          f"raster_bwd on the same buffer {k3_ms:.4f} ms), plain {plain_ms:.4f} ms (one "
+          f"run), bound {lim['bound_ms']:.4f} ms "
           f"({lim['bound_by']}, {taken:.0f} pixel-records, {replayed} pairs replayed)",
           flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None}
+    return {"max_abs_err": err, **times, "plain_ms": plain_ms, **lim, "library_ms": None,
+            "design": BWD_DESIGN}
 
 
 def orbit_targets(ply_path: Path, device):
@@ -671,15 +731,16 @@ def training_setup(ply_path: Path, data, device):
     return trainer, peak, peak16
 
 
-def first_step_geometry(trainer):
-    """The staging inputs of the training run's first step (initial
-    parameters, view 0) and the staging statics of its config."""
+def first_step_geometry(trainer, view: int = 0):
+    """The staging inputs of the training run's first step (the trainer's
+    current parameters, initial before its run; view 0 unless ``view``
+    says otherwise) and the staging statics of its config."""
     from gaussiansplattingmlx_tpu_torch.models import gaussians
     from gaussiansplattingmlx_tpu_torch.ops import projection, rasterize_ref, staging
 
     cfg, state, views = trainer.cfg.raster, trainer.state, trainer.views
-    cam = [views[k][0] for k in ("view", "proj", "camera_center", "fov_x", "fov_y",
-                                 "focal_x", "focal_y")]
+    cam = [views[k][view] for k in ("view", "proj", "camera_center", "fov_x", "fov_y",
+                                    "focal_x", "focal_y")]
     with torch.no_grad():
         active = gaussians.active_mask(state.params.capacity, state.num_active)
         means, shs, opacity, scales, rots = gaussians.activations(state.params, active)
@@ -696,8 +757,9 @@ def check_layout_buffers(trainer, layout):
     (tile 32, its pair budget, view 0, the L1 + SSIM cotangent against its
     target): K6 (aligned) or K5 (split) bit-exact vs plain, then K7 on the
     aligned record buffer the layout builds.  Returns the kernel line's
-    entries for K6 and K7 (aligned: the shapes their path gives them)."""
-    from gaussiansplattingmlx_tpu_torch.ops import binning, merge_cuda, rasterize_cuda, staging
+    entries for K6 and K7 (aligned) or K5 (split), timed at the shapes
+    their path gives them."""
+    from gaussiansplattingmlx_tpu_torch.ops import binning, rasterize_cuda, staging
 
     args, st = first_step_geometry(trainer)
     what = f"train {layout}, first step"
@@ -714,11 +776,8 @@ def check_layout_buffers(trainer, layout):
     with torch.no_grad():
         e = binning.expand_pairs(rect_min, rect_max, radii, WIDTH, HEIGHT, st.tile_w,
                                  st.tile_h, st.max_pairs)
-        require(torch.equal(merge_cuda.merge_ranks(e.cum_keep, st.max_pairs),
-                            merge_cuda.merge_ranks_plain(e.cum_keep, st.max_pairs)),
-                "merge_ranks kernel != plain on the training buffers")
-        print(f"merge_ranks: bit-exact vs plain on the training buffers ({st.max_pairs} "
-              f"slots, tile {st.tile_w})", flush=True)
+        ranks = check_merge_ranks(e.cum_keep, st.max_pairs,
+                                  f"{what}, tile {st.tile_w}, {int(e.num_pairs)} pairs")
         del e
         b = binning.bin_gaussians(rect_min, rect_max, radii, depths, WIDTH, HEIGHT,
                                   st.tile_w, st.tile_h, st.max_pairs)
@@ -728,13 +787,15 @@ def check_layout_buffers(trainer, layout):
             packed, b.sorted_gauss_idx, b.tile_start, b.tile_count, num_tiles, st.chunk)
     check_raster_bwd_aligned(records_cm, aligned_start, b.tile_count, st.tile_w, st.chunk,
                              trainer.views["target_rgb"][0], what)
-    return {}
+    return {"merge_ranks": ranks}
 
 
 def check_training_buffers(trainer, device):
     """K2, K1, K3 and K4 against their plain versions on the buffers of the
     training run's first step: its tile and pair budget, the initial
-    parameters, view 0 and the L1 + SSIM cotangent against its target."""
+    parameters, view 0 and the L1 + SSIM cotangent against its target; K3
+    also bit-identical over two launches.  Returns the kernel line's K3
+    entry, timed on this buffer (the shapes its path gives it)."""
     from gaussiansplattingmlx_tpu_torch.ops import merge_cuda, rasterize_cuda, segsum_cuda, staging
 
     cfg = trainer.cfg.raster
@@ -763,8 +824,17 @@ def check_training_buffers(trainer, device):
     del want1
     bargs = (sp.records_cm, sp.tile_start, sp.tile_count, block, *grid, tile, tile)
     got3 = rasterize_cuda.raster_bwd(*bargs)
-    assert_rows_close(got3, rasterize_cuda.raster_bwd_plain(*bargs),
-                      f"raster_bwd on the training buffers (tile {tile})")
+    again = rasterize_cuda.raster_bwd(*bargs)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got3).all()), "raster_bwd output not finite (training buffers)")
+    require(bit_equal(got3, again), "raster_bwd: two launches differ (training buffers)")
+    del again
+    want3, plain3_ms = timed_once(lambda: rasterize_cuda.raster_bwd_plain(*bargs))
+    assert_rows_close(got3, want3, f"raster_bwd on the training buffers (tile {tile})")
+    err3 = float((got3 - want3).abs().max())
+    del want3
+    t3 = kernel_ms(lambda: rasterize_cuda.raster_bwd(*bargs))
+    lim3, taken3, replayed3 = bwd_bound(block, sp.tile_count, got3.numel())
     rows_s, offsets = segsum_cuda.sort_by_gid(got3, gid, state.params.capacity)
     got4 = segsum_cuda.segment_sum_sorted(rows_s, offsets)
     want4 = segsum_cuda.segment_sum_sorted_plain(rows_s, offsets)
@@ -772,7 +842,14 @@ def check_training_buffers(trainer, device):
                                atol=SEGSUM_ATOL * float(want4.abs().max()))
     print(f"training buffers: merge_gather bit-exact, raster_fwd, raster_bwd and segsum "
           f"within tolerance of plain on {int(sp.num_pairs)} pairs (tile {tile}, "
-          f"max_pairs {cfg.max_pairs}, n_contrib mismatch {mismatch:.2e})", flush=True)
+          f"max_pairs {cfg.max_pairs}, n_contrib mismatch {mismatch:.2e}); raster_bwd "
+          f"bit-identical repeats, max abs err {err3:.3g}, kernel {t3['ms']:.4f} ms (a call "
+          f"{t3['call_ms']:.4f} ms), plain "
+          f"{plain3_ms:.4f} ms (one run), bound {lim3['bound_ms']:.4f} ms "
+          f"({lim3['bound_by']}, {taken3:.0f} pixel-records, {replayed3} pairs replayed)",
+          flush=True)
+    return {"max_abs_err": err3, **t3, "plain_ms": plain3_ms, **lim3, "library_ms": None,
+            "design": BWD_DESIGN}
 
 
 def run_training(trainer, counters):
@@ -950,10 +1027,11 @@ def main() -> int:
         # 5. training kernels on the bench camera's training buffers
         data = orbit_targets(ply_path, device)
         target = torch.as_tensor(data.images[0]).to(device)
-        raster_bwd, gid, rows = check_raster_bwd(args, st, target, device)
+        bwd_bench, gid, rows = check_raster_bwd(args, st, target, device)
         segsum = check_segsum(gid, rows, N_GAUSSIANS)
         del gid, rows
-        merge_ranks = check_merge_ranks(args, st)
+        ranks_serving = check_merge_ranks(serving_cumsum(args, st), st.max_pairs,
+                                          "bench camera, serving budget")
         check_relayout(args, st, "bench camera, tile 16", timed=False)
         with torch.no_grad():
             sp16, _ = staging._stage_impl(st, *args)
@@ -964,7 +1042,7 @@ def main() -> int:
 
         # 6. the training path through its entry point (the default layout)
         trainer, peak, peak16 = training_setup(ply_path, data, device)
-        check_training_buffers(trainer, device)
+        raster_bwd = {**check_training_buffers(trainer, device), **bwd_bench}
         steps = TRAIN_STEPS
         log, final, seconds, train_launches = run_training(trainer, counters)
         check_train_run(trainer, log, final, train_launches,
@@ -1001,6 +1079,12 @@ def main() -> int:
             del trainer
         relayout = layout_entries["relayout"]
         raster_bwd_aligned = layout_entries["raster_bwd_aligned"]
+        # K5 at the split training run's budget, with the split serving
+        # budget's numbers beside them.
+        merge_ranks = {**layout_entries["merge_ranks"],
+                       **{f"serving_{k}": ranks_serving[k]
+                          for k in ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
+                                    "library_call_ms")}}
 
         # 8. the split layout's serving path
         launches, seconds, npairs, split_mem, same = run_split_serving(

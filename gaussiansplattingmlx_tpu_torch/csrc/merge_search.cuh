@@ -1,8 +1,10 @@
-// The pair-slot -> owner search that K2 (merge_gather.cu) and K5
-// (merge_ranks.cu) share: rank(p) = #{ j : cum[j] <= p }, the upper bound
-// of p in the nondecreasing compacted cumsum `cum` [n], by binary search.
-// Integer compares only, so the rank is exact.  `cum` (n * 4 B) stays in the
-// 50 MB L2, and neighbouring slots walk the same search path.
+// K2's (merge_gather.cu) pair-slot -> owner search: rank(p) = #{ j : cum[j]
+// <= p }, the upper bound of p in the nondecreasing compacted cumsum `cum`
+// [n], by binary search, one per slot (~log2(n) dependent loads).  Integer
+// compares only, so the rank is exact.  `cum` (n * 4 B) stays in the 50 MB
+// L2, and neighbouring slots walk the same search path.  K5 (merge_ranks.cu)
+// searches a block-shared window of `cum` instead, the design K2 would take
+// next.
 #pragma once
 
 #include <cstdint>

@@ -13,7 +13,9 @@
 // in the pad are not written, nor are rows 11-15; the caller zero-fills the
 // output.
 //
-// Bound: instruction throughput (see rasterize_bwd_tile.cuh).
+// Block shape and bound: rasterize_bwd_tile.cuh (128 threads with two
+// pixels each at tile 16, 256 with four at tile 32; bound by the per-pixel
+// arithmetic).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -21,14 +23,16 @@
 
 namespace {
 
-__global__ void __launch_bounds__(1024)
+template <int kPix>
+__global__ void __launch_bounds__(kBwdMaxThreads, 2)
 raster_bwd_kernel(const float* __restrict__ records, int64_t rec_cols,
                   const int32_t* __restrict__ tile_start,
                   const int32_t* __restrict__ tile_count,
                   const float* __restrict__ cot, int32_t grid_w, int32_t tile_w,
-                  float alpha_clamp, float undo_floor, float* __restrict__ grad) {
-    raster_bwd_tile(records, rec_cols, tile_start[blockIdx.x], tile_count[blockIdx.x], cot,
-                    grid_w, tile_w, alpha_clamp, undo_floor, grad);
+                  int32_t tile_h, float alpha_clamp, float undo_floor,
+                  float* __restrict__ grad) {
+    raster_bwd_tile<kPix>(records, rec_cols, tile_start[blockIdx.x], tile_count[blockIdx.x],
+                          cot, grid_w, tile_w, tile_h, alpha_clamp, undo_floor, grad);
 }
 
 }  // namespace
@@ -39,9 +43,14 @@ extern "C" int gsplat_raster_bwd(const float* records, int64_t rec_cols,
                                  int32_t tile_w, int32_t tile_h, float alpha_clamp,
                                  float undo_floor, float* grad, void* stream) {
     const int tt = tile_w * tile_h;
-    raster_bwd_kernel<<<num_tiles, tt, raster_bwd_smem_bytes(tt),
-                        static_cast<cudaStream_t>(stream)>>>(
-        records, rec_cols, tile_start, tile_count, cot, grid_w, tile_w, alpha_clamp,
-        undo_floor, grad);
+    const int threads = raster_bwd_threads(tt);
+    const int pix = raster_bwd_pix(tt);
+    const auto kernel = pix == 1   ? &raster_bwd_kernel<1>
+                        : pix == 2 ? &raster_bwd_kernel<2>
+                                   : &raster_bwd_kernel<4>;
+    kernel<<<num_tiles, threads, raster_bwd_smem_bytes(threads),
+             static_cast<cudaStream_t>(stream)>>>(records, rec_cols, tile_start, tile_count,
+                                                  cot, grid_w, tile_w, tile_h, alpha_clamp,
+                                                  undo_floor, grad);
     return static_cast<int>(cudaGetLastError());
 }

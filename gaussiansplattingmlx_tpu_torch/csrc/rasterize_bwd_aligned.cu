@@ -18,8 +18,10 @@
 // too, split evenly over the blocks, so the caller allocates the output
 // without clearing it.
 //
-// Bound: instruction throughput, as K3 (see rasterize_bwd_tile.cuh); the zero
-// writes add 64 B per column that is not replayed.
+// Block shape and bound: as K3 (rasterize_bwd_tile.cuh: 128 threads with
+// two pixels each at tile 16, 256 with four at tile 32; bound by the
+// per-pixel arithmetic); the zero writes add 64 B per column that is not
+// replayed.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -27,21 +29,23 @@
 
 namespace {
 
-__global__ void __launch_bounds__(1024)
+template <int kPix>
+__global__ void __launch_bounds__(kBwdMaxThreads, 2)
 raster_bwd_aligned_kernel(const float* __restrict__ records, int64_t rec_cols,
                           const int32_t* __restrict__ aligned_start,
                           const int32_t* __restrict__ tile_count, const float* __restrict__ cot,
-                          int32_t num_tiles, int32_t grid_w, int32_t tile_w, int32_t chunk,
-                          float alpha_clamp, float undo_floor, float* __restrict__ grad) {
+                          int32_t num_tiles, int32_t grid_w, int32_t tile_w, int32_t tile_h,
+                          int32_t chunk, float alpha_clamp, float undo_floor,
+                          float* __restrict__ grad) {
     const int t = blockIdx.x;
-    const int tt = blockDim.x;
+    const int nthreads = blockDim.x;
     const int count = tile_count[t];
     const int64_t start = aligned_start[t];
-    const int nrec = raster_bwd_tile(records, rec_cols, start, count, cot, grid_w, tile_w,
-                                     alpha_clamp, undo_floor, grad);
+    const int nrec = raster_bwd_tile<kPix>(records, rec_cols, start, count, cot, grid_w, tile_w,
+                                           tile_h, alpha_clamp, undo_floor, grad);
 
     const int owned = (count + chunk - 1) / chunk * chunk;
-    for (int k = threadIdx.x; k < owned; k += tt) {
+    for (int k = threadIdx.x; k < owned; k += nthreads) {
         for (int r = k < nrec ? kRecRows : 0; r < kRecDim; ++r)
             grad[r * rec_cols + start + k] = 0.0f;
     }
@@ -52,7 +56,7 @@ raster_bwd_aligned_kernel(const float* __restrict__ records, int64_t rec_cols,
     const int64_t per = (rec_cols - owned_end + num_tiles - 1) / num_tiles;
     const int64_t lo = owned_end + t * per;
     const int64_t hi = min(lo + per, rec_cols);
-    for (int64_t col = lo + threadIdx.x; col < hi; col += tt) {
+    for (int64_t col = lo + threadIdx.x; col < hi; col += nthreads) {
         for (int r = 0; r < kRecDim; ++r) grad[r * rec_cols + col] = 0.0f;
     }
 }
@@ -66,9 +70,14 @@ extern "C" int gsplat_raster_bwd_aligned(const float* records, int64_t rec_cols,
                                          int32_t tile_h, int32_t chunk, float alpha_clamp,
                                          float undo_floor, float* grad, void* stream) {
     const int tt = tile_w * tile_h;
-    raster_bwd_aligned_kernel<<<num_tiles, tt, raster_bwd_smem_bytes(tt),
-                                static_cast<cudaStream_t>(stream)>>>(
-        records, rec_cols, aligned_start, tile_count, cot, num_tiles, grid_w, tile_w, chunk,
-        alpha_clamp, undo_floor, grad);
+    const int threads = raster_bwd_threads(tt);
+    const int pix = raster_bwd_pix(tt);
+    const auto kernel = pix == 1   ? &raster_bwd_aligned_kernel<1>
+                        : pix == 2 ? &raster_bwd_aligned_kernel<2>
+                                   : &raster_bwd_aligned_kernel<4>;
+    kernel<<<num_tiles, threads, raster_bwd_smem_bytes(threads),
+             static_cast<cudaStream_t>(stream)>>>(records, rec_cols, aligned_start, tile_count,
+                                                  cot, num_tiles, grid_w, tile_w, tile_h, chunk,
+                                                  alpha_clamp, undo_floor, grad);
     return static_cast<int>(cudaGetLastError());
 }

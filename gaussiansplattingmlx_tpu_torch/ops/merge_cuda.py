@@ -26,6 +26,9 @@ from . import _kernels
 TBL_ROWS = 24
 # Gaussian ids and slot indices ride as f32 values: exact up to 2^24.
 _F32_EXACT = 2 ** 24
+# Slots per block of K5 (kBlockSlots in csrc/merge_ranks.cu): the tests
+# place owner windows at its block edges.
+RANKS_BLOCK_SLOTS = 2048
 
 KERNEL = _kernels.Kernel(
     "gsplat_merge_gather",

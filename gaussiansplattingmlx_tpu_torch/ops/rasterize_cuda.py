@@ -40,7 +40,7 @@ REC_DIM = 16
 OUT_CHANNELS = 6
 COT_COLS = 8  # cotR, cotG, cotB, cotDepth, cotAlpha, alpha_fwd, ncon_fwd, 0
 _REC_ROWS = 11  # rows the compositing reads
-_MAX_BLOCK = 1024  # one thread per pixel of a tile
+_MAX_BLOCK = 1024  # pixels of a tile: K1 runs one thread per pixel
 
 KERNEL = _kernels.Kernel(
     "gsplat_raster_fwd",
@@ -222,6 +222,8 @@ def _check_bwd(records_cm, cot_block, num_tiles, tile_w, tile_h):
                    and cot_block.device == records_cm.device,
                    f"cotangent block must be contiguous f32 [{num_tiles}, {tt}, "
                    f"{COT_COLS}] on {records_cm.device}")
+    # The kernels read each pixel's 8 columns as two float4 loads.
+    _kernels.check(cot_block.data_ptr() % 16 == 0, "cotangent block must be 16-byte aligned")
 
 
 def raster_bwd(records_cm, tile_start, tile_count, cot_block, grid_w, grid_h,

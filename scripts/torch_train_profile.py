@@ -14,7 +14,9 @@ number of steps with ``torch.profiler``.  Prints device time by kernel
 (self device time of the device-side events, summed per name), device busy
 time per step, wall time per step and the device's idle share
 (1 - busy / wall); ``--out`` also writes them, with every kernel name, as
-JSON (one object per layout).  Imports no JAX.
+JSON (one object per layout).  In the sorted layout it also times K3 on
+each view's buffer before and after those steps, with the pixel-records
+each buffer makes it take (``replay_work``).  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -59,12 +61,47 @@ def main(argv=None) -> int:
             if layout != "sorted":
                 trainer = smoke.make_trainer(ply_path, data, device, **config.LAYOUTS[layout])
                 trainer.set_max_pairs(max_pairs)
+                results.append(profile(trainer, args.steps, layout, peak, gpu))
+                continue
+            before = replay_work(trainer, "initial parameters")
             results.append(profile(trainer, args.steps, layout, peak, gpu))
+            results[-1]["replay_work"] = before + replay_work(
+                trainer, f"after {int(trainer.state.step)} steps")
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(results, indent=1))
     return 0
+
+
+def replay_work(trainer, when: str) -> list:
+    """K3's work and device time on each view's buffer at the trainer's
+    current parameters (the L1 + SSIM cotangent against the view's target):
+    pixel-records taken, pairs replayed, milliseconds (``device_ms``, the
+    wrapper's zero fill included)."""
+    import chip_smoke as smoke
+    from gaussiansplattingmlx_tpu_torch.ops import rasterize_cuda, staging
+
+    tile = trainer.cfg.raster.tile_w
+    grid = -(-smoke.WIDTH // tile)
+    rows = []
+    for view in range(trainer.views["target_rgb"].shape[0]):
+        args, st = smoke.first_step_geometry(trainer, view)
+        with torch.no_grad():
+            sp, _ = staging._stage_train_impl(st, *args)
+        block, _ = smoke.loss_cotangent_block(sp.records_cm, sp.tile_start, sp.tile_count,
+                                              smoke.WIDTH, smoke.HEIGHT, tile,
+                                              trainer.views["target_rgb"][view])
+        bargs = (sp.records_cm, sp.tile_start, sp.tile_count, block, grid, grid, tile, tile)
+        ms = smoke.device_ms(lambda: rasterize_cuda.raster_bwd(*bargs))
+        lim, taken, replayed = smoke.bwd_bound(block, sp.tile_count, sp.records_cm.numel())
+        rows.append({"when": when, "view": view, "pairs": int(sp.num_pairs),
+                     "pixel_records": taken, "replayed": replayed, "k3_ms": ms,
+                     "bound_ms": lim["bound_ms"]})
+        print(f"raster_bwd on view {view}, {when}: {int(sp.num_pairs)} pairs, {taken:.0f} "
+              f"pixel-records, {replayed} replayed, {ms:.4f} ms (bound "
+              f"{lim['bound_ms']:.4f} ms)", flush=True)
+    return rows
 
 
 def profile(trainer, steps, layout, peak, gpu) -> dict:

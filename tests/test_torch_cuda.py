@@ -268,10 +268,17 @@ def test_train_step_card_matches_cpu():
         np.testing.assert_allclose(got[big], want[big], rtol=1e-5, atol=1e-7, err_msg=name)
 
 
-@pytest.mark.parametrize("case", ["saturated", "dense"])
+@pytest.mark.parametrize("case", ["saturated", "dense", "repeated", "small", "single"])
 def test_merge_ranks_kernel_matches_plain(case):
+    """K5 bit-exact against its plain version and torch.searchsorted.  Its
+    blocks take merge_cuda.RANKS_BLOCK_SLOTS (B) slots; beside the
+    compacted cumsum of binning (saturated and padding entries; footprint 1,
+    whose owner windows hold B - 1 entries), the cases hold repeated values
+    below the budget (one block's owner window longer than its shared
+    buffer), n < B, a single entry, and budgets that are no multiple of B."""
     require_cuda()
     gen = torch.Generator().manual_seed(13)
+    blk = merge_cuda.RANKS_BLOCK_SLOTS
     if case == "saturated":
         n = 5000
         foot = torch.randint(1, 9, (n,), generator=gen)
@@ -279,15 +286,28 @@ def test_merge_ranks_kernel_matches_plain(case):
         cum = binning._saturating_cumsum(foot)
         cum[-500:] = binning._CUM_CLAMP + 1
         budgets = (int(cum[2999]) - 777, int(cum[2999]) + 1001)
+    elif case == "dense":
+        cum = torch.arange(1, 3 * blk + 7, dtype=torch.int32)
+        budgets = (512, 2 * blk, 3 * blk + 100)
+    elif case == "repeated":
+        cum = torch.sort(torch.randint(0, 3000, (3 * blk,), generator=gen)).values.int()
+        cum[blk:blk + 1500] = 1700  # one value repeated across a block edge
+        budgets = (1, 4001, 2 * blk)
+    elif case == "small":
+        cum = torch.cumsum(torch.randint(1, 4, (300,), generator=gen), 0).int()
+        budgets = (blk - 1, 5000)
     else:
-        cum = torch.arange(1, 3000, dtype=torch.int32)
-        budgets = (512, 4096)
+        cum = torch.tensor([5], dtype=torch.int32)
+        budgets = (3, 6, blk + 1)
     for budget in budgets:
         before = merge_cuda.RANKS_KERNEL.launches
         got = merge_cuda.merge_ranks(cum.cuda(), budget)
         torch.cuda.synchronize()
         assert merge_cuda.RANKS_KERNEL.launches == before + 1
-        assert torch.equal(got.cpu(), merge_cuda.merge_ranks_plain(cum, budget))
+        want = merge_cuda.merge_ranks_plain(cum, budget)
+        assert torch.equal(got.cpu(), want), budget
+        slots = torch.arange(budget, dtype=torch.int32)
+        assert torch.equal(want, torch.searchsorted(cum, slots, right=True, out_int32=True))
 
 
 @pytest.mark.parametrize("chunk", [32, 128])
@@ -352,6 +372,62 @@ def test_raster_bwd_aligned_kernel_matches_plain(tile, chunk):
     for s, c in zip(sp.aligned_start.tolist(), sp.tile_count.tolist()):
         valid[s:s + c] = True
     assert bool((got[:, ~valid.cuda()] == 0).all()) and bool((got[11:] == 0).all())
+
+
+def _replay_edge_buffer(tile, device):
+    """An aligned training buffer at 200x144 (no multiple of either tile)
+    whose cotangent block holds the replay's edge cases: tiles with count 0,
+    tiles longer than a shared-memory batch whose count is no multiple of
+    the record group (3), pixels with n_contrib 0, and one tile whose every
+    pixel stops before its count.  The block's alpha is the forward's under
+    that n_contrib, so it stays consistent with the replay.  Returns the
+    (K3, K7 without chunk) argument tuple and the chunk."""
+    width, height, chunk = 200, 144, 32
+    st, args, _ = _staged(300, 13, width, height, tile, 16384, device)
+    st = st._replace(chunk=chunk)
+    sp, _ = staging._stage_impl(st, *args)
+    count = sp.tile_count
+    assert bool((count == 0).any()) and bool(((count > 96) & (count % 3 != 0)).any())
+    grid_w, grid_h = -(-width // tile), -(-height // tile)
+    fwd = rasterize_cuda.raster_fwd(sp.records_cm, sp.aligned_start, count, grid_w, grid_h,
+                                    tile, tile)
+    gen = torch.Generator().manual_seed(tile)
+    ncon = fwd[:, 5].cpu()
+    ncon[torch.rand(ncon.shape, generator=gen) < 0.1] = 0.0
+    short = int(torch.nonzero(count.cpu() > 20)[0])
+    ncon[short] = torch.minimum(ncon[short], torch.tensor(5.0))
+    ncon = ncon.to(device)
+    alpha = torch.zeros_like(fwd[:, 4])
+    rec = sp.records_cm[:11]
+    for ts, idx, valid in rasterize_cuda._tile_batches(sp.records_cm, sp.aligned_start, count,
+                                                       tile * tile, 2 ** 22):
+        alpha[ts] = rasterize_cuda._composite(rec[:, idx], valid, ts, grid_w, tile, tile, 0.99,
+                                              1e-4, ncon=ncon[ts])[:, 4]
+    cot = torch.randn(fwd.shape, generator=gen).to(device)
+    block = rasterize_cuda.cotangent_block(cot, torch.stack([alpha, ncon], dim=1))
+    return (sp.records_cm, sp.aligned_start, count, block, grid_w, grid_h, tile, tile), chunk
+
+
+@pytest.mark.parametrize("tile", [8, 16, 32])
+def test_raster_bwd_replay_edge_cases(tile):
+    """K3 and K7 at each of their block shapes (one pixel a thread in 64
+    threads at tile 8, two in 128 at tile 16, four in 256 at tile 32) on
+    _replay_edge_buffer: within tolerance of the plain version,
+    bit-identical over two launches, K7 bit-equal to K3 on the same
+    buffer."""
+    require_cuda()
+    args, chunk = _replay_edge_buffer(tile, "cuda")
+    got = rasterize_cuda.raster_bwd(*args)
+    again = rasterize_cuda.raster_bwd(*args)
+    k7 = rasterize_cuda.raster_bwd_aligned(*args, chunk)
+    k7_again = rasterize_cuda.raster_bwd_aligned(*args, chunk)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _bit_equal(got, again) and _bit_equal(k7, k7_again), "two launches differ"
+    assert _bit_equal(k7, got)
+    # A random cotangent on alpha: the early-exit tolerance, as in
+    # test_raster_bwd_aligned_kernel_matches_plain (ROADMAP.md §C).
+    _assert_rows_close(got, rasterize_cuda.raster_bwd_plain(*args), rtol=5e-3, atol=5e-4)
 
 
 @pytest.mark.parametrize("layout", ["aligned", "split"])

@@ -40,18 +40,36 @@ def _port_ranks(cum, max_pairs):
     return to_numpy(got)
 
 
-@pytest.mark.parametrize("case", ["random", "dense_boundaries", "saturated"])
+@pytest.mark.parametrize("case", ["random", "dense_boundaries", "saturated", "single",
+                                  "small", "port_block_edges", "port_block_shifted"])
 def test_merge_ranks_plain_matches_jax_interpret(case):
     """tests/test_binning.py's two cases (strictly increasing cumsums over
     block edges; footprint 1 everywhere, owners filling the kernel's window
-    bound) and a compacted cumsum with saturated and padding entries."""
+    bound), a compacted cumsum with saturated and padding entries, and the
+    edges of K5's blocks of merge_cuda.RANKS_BLOCK_SLOTS (B) slots that lie
+    inside the JAX kernel's contract (strictly increasing below the clamp, a
+    budget that is a multiple of its 512-slot block): one entry, n < B, and
+    footprint-1 cumsums whose owner windows hold B - 1 entries, the most a
+    block can have, starting at slot 1 and at slot B."""
     rng = np.random.default_rng(0)
     mp = 2 * merge_pallas.BLOCK
+    blk = merge_cuda.RANKS_BLOCK_SLOTS
     if case == "random":
         cum = np.cumsum(rng.integers(1, 7, size=400))
     elif case == "dense_boundaries":
         mp = merge_pallas.BLOCK
         cum = np.arange(1, mp + 200)
+    elif case == "single":
+        cum = np.array([5])
+    elif case == "small":
+        mp = blk
+        cum = np.cumsum(rng.integers(1, 4, size=300))
+    elif case == "port_block_edges":
+        mp = 2 * blk
+        cum = np.arange(1, 2 * blk + 300)
+    elif case == "port_block_shifted":
+        mp = 2 * blk
+        cum = np.arange(blk, 3 * blk + 1)
     else:
         foot = rng.integers(1, 6, size=300)
         foot[200] = 2 ** 31 - 1
