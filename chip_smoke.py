@@ -21,8 +21,10 @@ and checks each against its plain PyTorch version at the shapes of its path:
   targets rendered by the port from 4 orbit views, in the default sorted
   layout and again in each non-default layout (``train_staging="aligned"``:
   K6 and K7; ``staging="split"``: K5 and K7), each kernel first checked on
-  that run's own first-step buffers and the layouts' losses held to the
-  sorted run's; the kernels line times K3, K5, K6 and K7 on those buffers;
+  that run's own first-step buffers (K1 on all three layouts' record
+  buffers) and the layouts' losses held to the sorted run's; the kernels
+  line times K1-K7 on those buffers, K1's and K2's serving and K4's tile-16
+  numbers beside them;
 * the split layout's serving path: ``render_many`` over 16 orbit frames of
   the bench scene with ``RasterizerConfig(staging="split")``.
 
@@ -93,6 +95,11 @@ SPLIT_FRAMES = 16
 # named in the kernels line.
 BWD_DESIGN = ("replay: 2 pixels a thread at tile 16 (128 threads), 4 at tile 32 (256), "
               "transposed warp reduction over groups of 3 records")
+# The design of forward compositing K1 (rasterize_fwd.cu), named in the
+# kernels line.
+FWD_DESIGN = ("one pixel a thread in blocks of at most 128 pixels (whole rows: 2 blocks a tile at "
+              "tile 16, 8 at tile 32), each stopping on its own pixels; cp.async double-buffered "
+              "batches of 128 records as 3 x float4; 16-record groups between alive checks")
 
 
 class SmokeFailure(RuntimeError):
@@ -240,18 +247,34 @@ def bench_geometry(ply_path: Path, device):
                                               max_pairs, cfg.chunk_size)
 
 
+def merge_gather_entry(cum, tbl, max_pairs, what):
+    """K2 bit-exact against its plain version on a cumsum, table and pair
+    budget, timed there: the kernels line's entry."""
+    from gaussiansplattingmlx_tpu_torch.ops import merge_cuda
+
+    got = merge_cuda.merge_gather(cum, tbl, max_pairs)
+    want = merge_cuda.merge_gather_plain(cum, tbl, max_pairs)
+    torch.cuda.synchronize()
+    require(bit_equal(got, want), f"merge_gather kernel != plain ({what})")
+    times = kernel_ms(lambda: merge_cuda.merge_gather(cum, tbl, max_pairs))
+    plain_ms = cuda_ms(lambda: merge_cuda.merge_gather_plain(cum, tbl, max_pairs))
+    rows, n_tbl = tbl.shape
+    # One binary search per slot is ~log2(n) integer compares: far below the
+    # byte time, so the bound is the bytes (cum and table in, output out).
+    lim = bound(4.0 * (n_tbl + rows * n_tbl + rows * max_pairs), 0.0)
+    print(f"merge_gather: bit-exact vs plain on {n_tbl} gaussians x {max_pairs} slots "
+          f"({what}); kernel {times['ms']:.4f} ms (a call {times['call_ms']:.4f} ms), "
+          f"plain {plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms ({lim['bound_by']})",
+          flush=True)
+    return {"max_abs_err": 0.0, **times, "plain_ms": plain_ms, **lim, "library_ms": None}
+
+
 def check_merge(args, st, device):
     from gaussiansplattingmlx_tpu_torch.ops import binning, merge_cuda, staging
 
     with torch.no_grad():
         e, tbl = staging.merge_table(st, *args)
-    max_pairs = st.max_pairs
-    got = merge_cuda.merge_gather(e.cum_keep, tbl, max_pairs)
-    want = merge_cuda.merge_gather_plain(e.cum_keep, tbl, max_pairs)
-    torch.cuda.synchronize()
-    require(bit_equal(got, want), "merge_gather kernel != plain on the slice inputs")
-    times = kernel_ms(lambda: merge_cuda.merge_gather(e.cum_keep, tbl, max_pairs))
-    plain_ms = cuda_ms(lambda: merge_cuda.merge_gather_plain(e.cum_keep, tbl, max_pairs))
+    entry = merge_gather_entry(e.cum_keep, tbl, st.max_pairs, "serving, bench camera")
 
     # Synthetic cases: saturated cumsum entries and compacted-away pads under
     # a budget that overflows (no multiple of any block size), and a budget
@@ -273,50 +296,60 @@ def check_merge(args, st, device):
         torch.cuda.synchronize()
         require(bit_equal(got2, want2), f"merge_gather kernel != plain ({budget} slots)")
     require(bool((got2[:, plain_total:] == 0).all()), "slots past the last pair must be zero")
-    rows, n_tbl = tbl.shape
-    # One binary search per slot is ~log2(n) integer compares: far below the
-    # byte time, so the bound is the bytes (cum and table in, output out).
-    lim = bound(4.0 * (n_tbl + rows * n_tbl + rows * max_pairs), 0.0)
-    print(f"merge_gather: bit-exact vs plain on {n_tbl} gaussians x {max_pairs} slots "
-          f"and on two synthetic budgets; kernel {times['ms']:.4f} ms (a call "
-          f"{times['call_ms']:.4f} ms), plain {plain_ms:.4f} ms, bound "
-          f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})", flush=True)
-    return {"max_abs_err": float((got - want).abs().max()), **times, "plain_ms": plain_ms,
-            **lim, "library_ms": None}
+    print("merge_gather: bit-exact vs plain on two synthetic budgets", flush=True)
+    return entry
+
+
+def check_fwd(fargs, what, timed=True):
+    """K1 against its plain version on a record buffer ``fargs`` (raster_fwd's
+    arguments): within the image tolerances, two launches bit-identical.
+    With ``timed``, returns the kernels line's entry, its bound from the
+    pixel-records this buffer makes K1 take."""
+    from gaussiansplattingmlx_tpu_torch.ops import rasterize_cuda
+
+    got = rasterize_cuda.raster_fwd(*fargs)
+    again = rasterize_cuda.raster_fwd(*fargs)
+    want = rasterize_cuda.raster_fwd_plain(*fargs)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all()), f"raster_fwd output not finite ({what})")
+    require(bit_equal(got, again), f"raster_fwd: two launches differ ({what})")
+    torch.testing.assert_close(got[:, 0:3], want[:, 0:3], rtol=COLOR_RTOL, atol=COLOR_ATOL)
+    torch.testing.assert_close(got[:, 3], want[:, 3], rtol=DEPTH_RTOL, atol=DEPTH_ATOL)
+    torch.testing.assert_close(got[:, 4], want[:, 4], rtol=COLOR_RTOL, atol=COLOR_ATOL)
+    mismatch = float((got[:, 5] != want[:, 5]).float().mean())
+    require(mismatch <= NCON_MISMATCH, f"raster_fwd: n_contrib mismatch {mismatch} ({what})")
+    err = float((got[:, :5] - want[:, :5]).abs().max())
+    del again, want
+    pairs = int(fargs[2].sum())
+    line = (f"raster_fwd: within tolerance of plain on {pairs} pairs ({what}, tile "
+            f"{fargs[5]}; max abs err {err:.3g}, n_contrib mismatch {mismatch:.2e}); "
+            f"bit-identical repeats")
+    if not timed:
+        print(line, flush=True)
+        return None
+    times = kernel_ms(lambda: rasterize_cuda.raster_fwd(*fargs))
+    plain_ms = cuda_ms(lambda: rasterize_cuda.raster_fwd_plain(*fargs), reps=3)
+    taken = float(got[:, 5].sum())
+    # Bytes: the 11 record rows of every pair, tile ranges, the output.
+    lim = bound(4.0 * (11 * pairs + 2 * fargs[2].numel() + got.numel()), K1_OPS * taken)
+    print(f"{line}; kernel {times['ms']:.4f} ms (a call {times['call_ms']:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}, "
+          f"{taken:.0f} pixel-records taken)", flush=True)
+    return {"max_abs_err": err, **times, "plain_ms": plain_ms, **lim, "library_ms": None,
+            "pixel_records": taken}
 
 
 def check_raster(args, st):
-    from gaussiansplattingmlx_tpu_torch.ops import rasterize_cuda, staging
+    """K1 on the serving path's buffer: the bench camera at the auto budget."""
+    from gaussiansplattingmlx_tpu_torch.ops import staging
 
     with torch.no_grad():
         staged = staging.stage_pairs_sorted(st, *args)
     require(int(staged.overflow_pairs) == 0, "staging at the auto budget must not overflow")
     grid_w = -(-st.image_width // st.tile_w)
     grid_h = -(-st.image_height // st.tile_h)
-    fargs = (staged.records_cm, staged.tile_start, staged.tile_count,
-             grid_w, grid_h, st.tile_w, st.tile_h)
-    got = rasterize_cuda.raster_fwd(*fargs)
-    want = rasterize_cuda.raster_fwd_plain(*fargs)
-    torch.cuda.synchronize()
-    require(bool(torch.isfinite(got).all()), "raster kernel output not finite")
-    torch.testing.assert_close(got[:, 0:3], want[:, 0:3], rtol=COLOR_RTOL, atol=COLOR_ATOL)
-    torch.testing.assert_close(got[:, 3], want[:, 3], rtol=DEPTH_RTOL, atol=DEPTH_ATOL)
-    torch.testing.assert_close(got[:, 4], want[:, 4], rtol=COLOR_RTOL, atol=COLOR_ATOL)
-    mismatch = float((got[:, 5] != want[:, 5]).float().mean())
-    require(mismatch <= NCON_MISMATCH, f"n_contrib mismatch {mismatch}")
-    err = float((got[:, :5] - want[:, :5]).abs().max())
-    times = kernel_ms(lambda: rasterize_cuda.raster_fwd(*fargs))
-    plain_ms = cuda_ms(lambda: rasterize_cuda.raster_fwd_plain(*fargs), reps=3)
-    pairs = int(staged.num_pairs)
-    taken = float(got[:, 5].sum())
-    # Bytes: the 11 record rows of every pair, tile ranges, the output.
-    lim = bound(4.0 * (11 * pairs + 2 * grid_w * grid_h + got.numel()), K1_OPS * taken)
-    print(f"raster_fwd: within tolerance of plain on {pairs} pairs "
-          f"(max abs err {err:.3g}, n_contrib mismatch {mismatch:.2e}); "
-          f"kernel {times['ms']:.4f} ms (a call {times['call_ms']:.4f} ms), plain "
-          f"{plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}, "
-          f"{taken:.0f} pixel-records taken)", flush=True)
-    return {"max_abs_err": err, **times, "plain_ms": plain_ms, **lim, "library_ms": None}
+    return check_fwd((staged.records_cm, staged.tile_start, staged.tile_count,
+                      grid_w, grid_h, st.tile_w, st.tile_h), "serving, bench camera")
 
 
 def check_small_render(device):
@@ -477,9 +510,10 @@ def check_raster_bwd(args, st, target, device):
     return bench, gid, got
 
 
-def check_segsum(gid, rows, num_rec):
-    """K4 against its plain version on the training buffer's gid and K3's
-    rows; two launches bit-identical; torch.segment_reduce as the yardstick."""
+def check_segsum(gid, rows, num_rec, what):
+    """K4 against its plain version on a training buffer's gid and K3's rows;
+    two launches bit-identical; torch.segment_reduce as the yardstick.
+    Returns the kernels line's entry, timed there."""
     from gaussiansplattingmlx_tpu_torch.ops import segsum_cuda
 
     rows_s, offsets = segsum_cuda.sort_by_gid(rows, gid, num_rec)
@@ -508,7 +542,7 @@ def check_segsum(gid, rows, num_rec):
     live = len(segsum_cuda.LIVE_ROWS)
     lim = bound(4.0 * (live * used + offsets.numel() + got.numel()), live * used)
     print(f"segsum: within rtol {SEGSUM_RTOL} of plain on {used} pairs into {num_rec} "
-          f"gaussians; bit-identical repeats; kernel {times['ms']:.4f} ms (a call "
+          f"gaussians ({what}); bit-identical repeats; kernel {times['ms']:.4f} ms (a call "
           f"{times['call_ms']:.4f} ms), plain {plain_ms:.4f} ms, torch.segment_reduce "
           f"{library_ms:.4f} ms (a call {library_call_ms:.4f} ms), bound "
           f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})", flush=True)
@@ -755,19 +789,22 @@ def first_step_geometry(trainer, view: int = 0):
 def check_layout_buffers(trainer, layout):
     """The first step's buffers of a non-default layout's training run
     (tile 32, its pair budget, view 0, the L1 + SSIM cotangent against its
-    target): K6 (aligned) or K5 (split) bit-exact vs plain, then K7 on the
-    aligned record buffer the layout builds.  Returns the kernel line's
+    target): K6 (aligned) or K5 (split) bit-exact vs plain, then K1 and K7 on
+    the aligned record buffer the layout builds.  Returns the kernel line's
     entries for K6 and K7 (aligned) or K5 (split), timed at the shapes
     their path gives them."""
     from gaussiansplattingmlx_tpu_torch.ops import binning, rasterize_cuda, staging
 
     args, st = first_step_geometry(trainer)
     what = f"train {layout}, first step"
+    grid = (-(-WIDTH // st.tile_w), -(-HEIGHT // st.tile_h))
     if layout == "aligned":
         relayout = check_relayout(args, st, f"training buffers, tile {st.tile_w}")
         with torch.no_grad():
             sp, _ = staging._stage_impl(st, *args)
         require(int(sp.overflow_pairs) == 0, "aligned training buffers overflow")
+        check_fwd((sp.records_cm, sp.aligned_start, sp.tile_count, *grid, st.tile_w,
+                   st.tile_h), what, timed=False)
         aligned = check_raster_bwd_aligned(sp.records_cm, sp.aligned_start, sp.tile_count,
                                            st.tile_w, st.chunk, trainer.views["target_rgb"][0],
                                            what, timed=True)
@@ -785,6 +822,8 @@ def check_layout_buffers(trainer, layout):
         num_tiles = b.tile_count.numel()
         records_cm, aligned_start = rasterize_cuda.split_records(
             packed, b.sorted_gauss_idx, b.tile_start, b.tile_count, num_tiles, st.chunk)
+    check_fwd((records_cm, aligned_start, b.tile_count, *grid, st.tile_w, st.tile_h), what,
+              timed=False)
     check_raster_bwd_aligned(records_cm, aligned_start, b.tile_count, st.tile_w, st.chunk,
                              trainer.views["target_rgb"][0], what)
     return {"merge_ranks": ranks}
@@ -793,35 +832,27 @@ def check_layout_buffers(trainer, layout):
 def check_training_buffers(trainer, device):
     """K2, K1, K3 and K4 against their plain versions on the buffers of the
     training run's first step: its tile and pair budget, the initial
-    parameters, view 0 and the L1 + SSIM cotangent against its target; K3
-    also bit-identical over two launches.  Returns the kernel line's K3
-    entry, timed on this buffer (the shapes its path gives it)."""
-    from gaussiansplattingmlx_tpu_torch.ops import merge_cuda, rasterize_cuda, segsum_cuda, staging
+    parameters, view 0 and the L1 + SSIM cotangent against its target; K1
+    and K3 also bit-identical over two launches.  Returns the kernels line's
+    entries for K2, K1, K3 and K4, timed on these buffers (the shapes their
+    path gives them)."""
+    from gaussiansplattingmlx_tpu_torch.ops import rasterize_cuda, staging
 
     cfg = trainer.cfg.raster
     state, views = trainer.state, trainer.views
     args, st = first_step_geometry(trainer)
+    what = f"training buffers, first step, max_pairs {cfg.max_pairs}"
     with torch.no_grad():
         e, tbl = staging.merge_table(st, *args)
-        g2 = merge_cuda.merge_gather(e.cum_keep, tbl, st.max_pairs)
-        w2 = merge_cuda.merge_gather_plain(e.cum_keep, tbl, st.max_pairs)
-        require(torch.equal(g2.view(torch.int32), w2.view(torch.int32)),
-                "merge_gather kernel != plain on the training buffers")
-        del g2, w2
+        merge = merge_gather_entry(e.cum_keep, tbl, st.max_pairs, what)
+        del e, tbl
         sp, gid = staging._stage_train_impl(st, *args)
     require(int(sp.overflow_pairs) == 0, "training buffers overflow")
     tile = cfg.tile_w
     grid = (-(-WIDTH // tile), -(-HEIGHT // tile))
-    fargs = (sp.records_cm, sp.tile_start, sp.tile_count, *grid, tile, tile)
-    block, got1 = loss_cotangent_block(sp.records_cm, sp.tile_start, sp.tile_count,
-                                       WIDTH, HEIGHT, tile, views["target_rgb"][0])
-    want1 = rasterize_cuda.raster_fwd_plain(*fargs)
-    torch.testing.assert_close(got1[:, 0:3], want1[:, 0:3], rtol=COLOR_RTOL, atol=COLOR_ATOL)
-    torch.testing.assert_close(got1[:, 3], want1[:, 3], rtol=DEPTH_RTOL, atol=DEPTH_ATOL)
-    torch.testing.assert_close(got1[:, 4], want1[:, 4], rtol=COLOR_RTOL, atol=COLOR_ATOL)
-    mismatch = float((got1[:, 5] != want1[:, 5]).float().mean())
-    require(mismatch <= NCON_MISMATCH, f"n_contrib mismatch {mismatch} on the training buffers")
-    del want1
+    fwd = check_fwd((sp.records_cm, sp.tile_start, sp.tile_count, *grid, tile, tile), what)
+    block, _ = loss_cotangent_block(sp.records_cm, sp.tile_start, sp.tile_count,
+                                    WIDTH, HEIGHT, tile, views["target_rgb"][0])
     bargs = (sp.records_cm, sp.tile_start, sp.tile_count, block, *grid, tile, tile)
     got3 = rasterize_cuda.raster_bwd(*bargs)
     again = rasterize_cuda.raster_bwd(*bargs)
@@ -835,21 +866,15 @@ def check_training_buffers(trainer, device):
     del want3
     t3 = kernel_ms(lambda: rasterize_cuda.raster_bwd(*bargs))
     lim3, taken3, replayed3 = bwd_bound(block, sp.tile_count, got3.numel())
-    rows_s, offsets = segsum_cuda.sort_by_gid(got3, gid, state.params.capacity)
-    got4 = segsum_cuda.segment_sum_sorted(rows_s, offsets)
-    want4 = segsum_cuda.segment_sum_sorted_plain(rows_s, offsets)
-    torch.testing.assert_close(got4, want4, rtol=SEGSUM_RTOL,
-                               atol=SEGSUM_ATOL * float(want4.abs().max()))
-    print(f"training buffers: merge_gather bit-exact, raster_fwd, raster_bwd and segsum "
-          f"within tolerance of plain on {int(sp.num_pairs)} pairs (tile {tile}, "
-          f"max_pairs {cfg.max_pairs}, n_contrib mismatch {mismatch:.2e}); raster_bwd "
-          f"bit-identical repeats, max abs err {err3:.3g}, kernel {t3['ms']:.4f} ms (a call "
-          f"{t3['call_ms']:.4f} ms), plain "
-          f"{plain3_ms:.4f} ms (one run), bound {lim3['bound_ms']:.4f} ms "
-          f"({lim3['bound_by']}, {taken3:.0f} pixel-records, {replayed3} pairs replayed)",
-          flush=True)
-    return {"max_abs_err": err3, **t3, "plain_ms": plain3_ms, **lim3, "library_ms": None,
-            "design": BWD_DESIGN}
+    print(f"raster_bwd: within tolerance of plain on {int(sp.num_pairs)} pairs ({what}, "
+          f"tile {tile}); bit-identical repeats, max abs err {err3:.3g}, kernel "
+          f"{t3['ms']:.4f} ms (a call {t3['call_ms']:.4f} ms), plain {plain3_ms:.4f} ms "
+          f"(one run), bound {lim3['bound_ms']:.4f} ms ({lim3['bound_by']}, {taken3:.0f} "
+          f"pixel-records, {replayed3} pairs replayed)", flush=True)
+    segsum = check_segsum(gid, got3, state.params.capacity, f"{what}, K3's rows")
+    bwd = {"max_abs_err": err3, **t3, "plain_ms": plain3_ms, **lim3, "library_ms": None,
+           "design": BWD_DESIGN}
+    return {"merge_gather": merge, "raster_fwd": fwd, "raster_bwd": bwd, "segsum": segsum}
 
 
 def run_training(trainer, counters):
@@ -994,8 +1019,8 @@ def main() -> int:
         # 3. serving kernels at the serving path's shapes
         args, total, st = bench_geometry(ply_path, device)
         require(total > 0, "no pairs in the bench view")
-        merge = check_merge(args, st, device)
-        raster = check_raster(args, st)
+        merge_serving = check_merge(args, st, device)
+        fwd_serving = check_raster(args, st)
         check_small_render(device)
 
         # 4. the serving path through its entry point
@@ -1028,7 +1053,7 @@ def main() -> int:
         data = orbit_targets(ply_path, device)
         target = torch.as_tensor(data.images[0]).to(device)
         bwd_bench, gid, rows = check_raster_bwd(args, st, target, device)
-        segsum = check_segsum(gid, rows, N_GAUSSIANS)
+        segsum_bench = check_segsum(gid, rows, N_GAUSSIANS, "bench camera, tile 16")
         del gid, rows
         ranks_serving = check_merge_ranks(serving_cumsum(args, st), st.max_pairs,
                                           "bench camera, serving budget")
@@ -1042,7 +1067,8 @@ def main() -> int:
 
         # 6. the training path through its entry point (the default layout)
         trainer, peak, peak16 = training_setup(ply_path, data, device)
-        raster_bwd = {**check_training_buffers(trainer, device), **bwd_bench}
+        train_entries = check_training_buffers(trainer, device)
+        raster_bwd = {**train_entries["raster_bwd"], **bwd_bench}
         steps = TRAIN_STEPS
         log, final, seconds, train_launches = run_training(trainer, counters)
         check_train_run(trainer, log, final, train_launches,
@@ -1055,7 +1081,8 @@ def main() -> int:
         del trainer
 
         # 7. the non-default layouts' training runs, at the same pair budget;
-        # K6 and K7 checked and timed on the aligned run's own buffers
+        # K1 checked and K6 and K7 checked and timed on the aligned run's own
+        # buffers, K1, K5 and K7 on the split run's
         layout_launches, layout_entries = {}, {}
         for layout, launched in (
                 ("aligned", dict(merge_gather=steps, relayout=steps)),
@@ -1087,26 +1114,43 @@ def main() -> int:
                                     "library_call_ms")}}
 
         # 8. the split layout's serving path
-        launches, seconds, npairs, split_mem, same = run_split_serving(
+        split_launches, seconds, npairs, split_mem, same = run_split_serving(
             ply_path, device, res.max_pairs, res.colors, counters)
-        require(launches == expect(merge_ranks=SPLIT_FRAMES, raster_fwd=SPLIT_FRAMES),
-                f"split serving launches {launches}")
+        require(split_launches == expect(merge_ranks=SPLIT_FRAMES, raster_fwd=SPLIT_FRAMES),
+                f"split serving launches {split_launches}")
         print(f"render split: {SPLIT_FRAMES} orbit frames through render_many, "
               f"staging='split', max_pairs {res.max_pairs}, num_pairs "
               f"{int(npairs.min())}-{int(npairs.max())}, {SPLIT_FRAMES / seconds:.2f} "
               f"frames/s; the 4 serving views within tolerance of the fused render "
               f"(bit-equal: {same}); peak memory {split_mem / 2**30:.3f} GiB; launches "
-              f"{launches} | {gpu}", flush=True)
+              f"{split_launches} | {gpu}", flush=True)
+
+    # K1, K2 and K4 at the sorted training run's shapes, their serving (K1,
+    # K2) or tile-16 bench buffer (K4) numbers beside them.
+    timed = ("ms", "call_ms", "plain_ms", "bound_ms", "max_abs_err")
+    merge_gather = {**train_entries["merge_gather"],
+                    **{f"serving_{k}": merge_serving[k] for k in timed},
+                    "serving_launches": serve_launches["merge_gather"]}
+    fwd_paths = {"serving": serve_launches["raster_fwd"],
+                 "train_sorted": train_launches["raster_fwd"],
+                 **{f"train_{k}": v["raster_fwd"] for k, v in layout_launches.items()},
+                 "serving_split": split_launches["raster_fwd"]}
+    raster_fwd = {**train_entries["raster_fwd"],
+                  **{f"serving_{k}": fwd_serving[k] for k in (*timed, "pixel_records")},
+                  "serving_launches": serve_launches["raster_fwd"],
+                  "launches_by_path": fwd_paths, "design": FWD_DESIGN}
+    segsum = {**train_entries["segsum"],
+              **{f"bench_tile16_{k}": segsum_bench[k] for k in (*timed, "library_ms")}}
 
     kernels = [
         {"name": "merge_gather", "route": "cuda",
          "source": "gaussiansplattingmlx_tpu_torch/csrc/merge_gather.cu",
          "replaces": "gaussiansplattingmlx_tpu/ops/merge_pallas.py:156",
-         "launches": serve_launches["merge_gather"], **merge},
+         "launches": train_launches["merge_gather"], **merge_gather},
         {"name": "raster_fwd", "route": "cuda",
          "source": "gaussiansplattingmlx_tpu_torch/csrc/rasterize_fwd.cu",
          "replaces": "gaussiansplattingmlx_tpu/ops/rasterize_pallas.py:210",
-         "launches": serve_launches["raster_fwd"], **raster},
+         "launches": train_launches["raster_fwd"], **raster_fwd},
         {"name": "raster_bwd", "route": "cuda",
          "source": "gaussiansplattingmlx_tpu_torch/csrc/rasterize_bwd.cu",
          "replaces": "gaussiansplattingmlx_tpu/ops/rasterize_pallas.py:473",

@@ -56,11 +56,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "raster_tile.cuh"
+
 namespace {
 
-constexpr int kRecRows = 11;
 constexpr int kRecDim = 16;
-constexpr int kRecStride = 12;  // shared-memory floats per staged record (3 x float4)
 constexpr int kGroup = 3;       // records per transposed warp reduction
 constexpr int kBatch = 96;      // records per shared-memory batch, a multiple of kGroup
 constexpr int kGradQ = 10;      // mx, my, c00, cs, c11, r, g, b, depth, op

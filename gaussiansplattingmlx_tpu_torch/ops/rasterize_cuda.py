@@ -24,7 +24,12 @@ replays are zero).
 ``raster_fwd``, ``raster_bwd`` and ``raster_bwd_aligned`` dispatch on the
 device of their inputs: CPU tensors take the ``*_plain`` versions; CUDA
 tensors launch ``csrc/rasterize_fwd.cu`` / ``csrc/rasterize_bwd.cu`` /
-``csrc/rasterize_bwd_aligned.cu`` or raise.
+``csrc/rasterize_bwd_aligned.cu`` or raise.  K1 splits a tile into blocks
+of 128 consecutive pixels, one a thread, each walking the tile's whole
+record list until its own pixels stop; K3 and K7 replay a tile in one block
+with 1, 2 or 4 pixels a thread (``csrc/rasterize_bwd_tile.cuh``).  K1's
+per-pixel arithmetic is the replay's, so the alpha K1 stores is the one K3
+and K7 rebuild transmittance from.
 """
 
 from __future__ import annotations
@@ -40,7 +45,9 @@ REC_DIM = 16
 OUT_CHANNELS = 6
 COT_COLS = 8  # cotR, cotG, cotB, cotDepth, cotAlpha, alpha_fwd, ncon_fwd, 0
 _REC_ROWS = 11  # rows the compositing reads
-_MAX_BLOCK = 1024  # pixels of a tile: K1 runs one thread per pixel
+# Pixels of a tile: K3 and K7 run a block a tile with at most 4 pixels a
+# thread in 256 threads; K1 runs blocks of 128 pixels, one a thread.
+_MAX_BLOCK = 1024
 
 KERNEL = _kernels.Kernel(
     "gsplat_raster_fwd",

@@ -14,9 +14,10 @@ number of steps with ``torch.profiler``.  Prints device time by kernel
 (self device time of the device-side events, summed per name), device busy
 time per step, wall time per step and the device's idle share
 (1 - busy / wall); ``--out`` also writes them, with every kernel name, as
-JSON (one object per layout).  In the sorted layout it also times K3 on
-each view's buffer before and after those steps, with the pixel-records
-each buffer makes it take (``replay_work``).  Imports no JAX.
+JSON (one object per layout).  In the sorted layout it also times K1 and
+K3 on each view's buffer before and after those steps, with the
+pixel-records each buffer makes them take (``replay_work``).  Imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -75,10 +76,11 @@ def main(argv=None) -> int:
 
 
 def replay_work(trainer, when: str) -> list:
-    """K3's work and device time on each view's buffer at the trainer's
-    current parameters (the L1 + SSIM cotangent against the view's target):
-    pixel-records taken, pairs replayed, milliseconds (``device_ms``, the
-    wrapper's zero fill included)."""
+    """K1's and K3's work and device time on each view's buffer at the
+    trainer's current parameters (the L1 + SSIM cotangent against the view's
+    target): pixel-records taken (the same for both), pairs replayed,
+    milliseconds (``device_ms``; K3's includes the wrapper's zero fill),
+    and each kernel's bound."""
     import chip_smoke as smoke
     from gaussiansplattingmlx_tpu_torch.ops import rasterize_cuda, staging
 
@@ -92,15 +94,21 @@ def replay_work(trainer, when: str) -> list:
         block, _ = smoke.loss_cotangent_block(sp.records_cm, sp.tile_start, sp.tile_count,
                                               smoke.WIDTH, smoke.HEIGHT, tile,
                                               trainer.views["target_rgb"][view])
-        bargs = (sp.records_cm, sp.tile_start, sp.tile_count, block, grid, grid, tile, tile)
+        fargs = (sp.records_cm, sp.tile_start, sp.tile_count, grid, grid, tile, tile)
+        bargs = (*fargs[:3], block, *fargs[3:])
+        k1_ms = smoke.device_ms(lambda: rasterize_cuda.raster_fwd(*fargs))
         ms = smoke.device_ms(lambda: rasterize_cuda.raster_bwd(*bargs))
         lim, taken, replayed = smoke.bwd_bound(block, sp.tile_count, sp.records_cm.numel())
-        rows.append({"when": when, "view": view, "pairs": int(sp.num_pairs),
-                     "pixel_records": taken, "replayed": replayed, "k3_ms": ms,
-                     "bound_ms": lim["bound_ms"]})
-        print(f"raster_bwd on view {view}, {when}: {int(sp.num_pairs)} pairs, {taken:.0f} "
-              f"pixel-records, {replayed} replayed, {ms:.4f} ms (bound "
-              f"{lim['bound_ms']:.4f} ms)", flush=True)
+        pairs = int(sp.num_pairs)
+        out_numel = 6 * block.shape[0] * block.shape[1]  # K1 output [T, 6, TT]
+        lim1 = smoke.bound(4.0 * (11 * pairs + 2 * sp.tile_count.numel() + out_numel),
+                           smoke.K1_OPS * taken)
+        rows.append({"when": when, "view": view, "pairs": pairs,
+                     "pixel_records": taken, "replayed": replayed, "k1_ms": k1_ms,
+                     "k1_bound_ms": lim1["bound_ms"], "k3_ms": ms, "bound_ms": lim["bound_ms"]})
+        print(f"view {view}, {when}: {pairs} pairs, {taken:.0f} pixel-records; raster_fwd "
+              f"{k1_ms:.4f} ms (bound {lim1['bound_ms']:.4f} ms); raster_bwd {replayed} "
+              f"replayed, {ms:.4f} ms (bound {lim['bound_ms']:.4f} ms)", flush=True)
     return rows
 
 

@@ -108,6 +108,86 @@ def test_raster_fwd_kernel_include_rule():
     assert bool(torch.isfinite(out.color).all())
 
 
+def _fwd_edge_buffer(tile, layout, device):
+    """K1's arguments on a 200x144 record buffer (no multiple of any tile)
+    that holds its edge cases: the scene's tiles, with empty ones and ones
+    past the image edge, in the sorted layout (unaligned starts) or the
+    chunk-aligned one (chunk 32: zero-padded columns after each tile's
+    records); then tiles 0-2 rewritten: tile 0 takes 601 faint records
+    (several batches of any block, no multiple of one, all taken by every
+    pixel), tile 1 300 opaque, broad ones (every pixel stops after 4, within
+    the first batch), tile 2 none.  Their columns follow the buffer from an
+    odd offset."""
+    width, height = 200, 144
+    st, args, sp = _staged(300, 13, width, height, tile, 16384, device)
+    start = sp.tile_start
+    if layout == "aligned":
+        sp, _ = staging._stage_impl(st, *args)
+        start = sp.aligned_start
+    start, count = start.cpu().clone(), sp.tile_count.cpu().clone()
+    assert int((count == 0).sum()) > 1
+    gen = torch.Generator().manual_seed(tile)
+    grid_w, grid_h = -(-width // tile), -(-height // tile)
+
+    def tile_records(t, n, opacity, conic):
+        r = torch.zeros((16, n))
+        r[0] = (t % grid_w) * tile + torch.rand(n, generator=gen) * tile
+        r[1] = (t // grid_w) * tile + torch.rand(n, generator=gen) * tile
+        r[2] = r[5] = conic
+        r[3] = r[4] = 0.1 * conic
+        r[6:9] = torch.rand((3, n), generator=gen)
+        r[9] = torch.linspace(1.0, 2.0, n)
+        r[10] = opacity
+        return r
+
+    cols = sp.records_cm.shape[1]
+    records = torch.cat([sp.records_cm.cpu(), torch.zeros((16, 1)),
+                         tile_records(0, 601, 0.01, 0.02),
+                         tile_records(1, 300, 0.95, 1e-6)], dim=1)
+    start[0], count[0] = cols + 1, 601
+    start[1], count[1] = cols + 1 + 601, 300
+    count[2] = 0
+    return (records.to(device), start.to(device), count.to(device), grid_w, grid_h, tile, tile)
+
+
+def _assert_fwd_close(got, want):
+    """K1's tolerances against its plain version (the JAX package's
+    Pallas-vs-oracle image tolerances)."""
+    torch.testing.assert_close(got[:, :3], want[:, :3], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got[:, 3], want[:, 3], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got[:, 4], want[:, 4], rtol=1e-4, atol=1e-5)
+    assert float((got[:, 5] != want[:, 5]).float().mean()) <= 0.003
+
+
+@pytest.mark.parametrize("layout", ["sorted", "aligned"])
+@pytest.mark.parametrize("tile", [8, 16, 32])
+def test_raster_fwd_kernel_edge_cases(tile, layout):
+    """K1 at each of its block shapes (one block of 64 pixels a tile at tile
+    8, two of 128 at tile 16, eight at tile 32) on _fwd_edge_buffer: within
+    tolerance of the plain version, bit-identical over two launches, one
+    launch counted a call; the long tile takes all 601 records, the opaque
+    one stops at 4, the empty one is clear; the cropped image equals the
+    plain version's crop."""
+    require_cuda()
+    args = _fwd_edge_buffer(tile, layout, "cuda")
+    before = rasterize_cuda.KERNEL.launches
+    got = rasterize_cuda.raster_fwd(*args)
+    again = rasterize_cuda.raster_fwd(*args)
+    torch.cuda.synchronize()
+    assert rasterize_cuda.KERNEL.launches == before + 2
+    assert _bit_equal(got, again), "two launches differ"
+    assert bool(torch.isfinite(got).all())
+    want = rasterize_cuda.raster_fwd_plain(*args)
+    _assert_fwd_close(got, want)
+    assert bool((got[0, 5] == 601).all()) and bool((got[1, 5] == 4).all())
+    assert bool((got[2] == 0).all())
+    img = rasterize_cuda.rasterize_staged(*args[:3], 200, 144, tile, tile)
+    crop = rasterize_cuda._untile(want, *args[3:], 200, 144)
+    assert img.color.shape == (144, 200, 3)
+    torch.testing.assert_close(img.color, crop.color, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(img.alpha, crop.alpha, rtol=1e-4, atol=1e-5)
+
+
 def test_staging_on_card_matches_cpu():
     """Index machinery on the card (merge-gather kernel, sort, searchsorted)
     gives the CPU's bit-exact staged buffer."""
