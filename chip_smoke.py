@@ -26,7 +26,21 @@ and checks each against its plain PyTorch version at the shapes of its path:
   line times K1-K7 on those buffers, K1's and K2's serving and K4's tile-16
   numbers beside them;
 * the split layout's serving path: ``render_many`` over 16 orbit frames of
-  the bench scene with ``RasterizerConfig(staging="split")``.
+  the bench scene with ``RasterizerConfig(staging="split")``;
+* densify: from the sorted run's state after its 20 steps, the densify step
+  (Adam reset) and the prune-only step on the card against the same steps
+  on CPU copies with one draw made on the card (stats, gather map, noise
+  modes, parameters and moments bit-exact but the xyz and scales of the
+  rows a round created), each timed on the card;
+* the densified training run through ``Trainer.run``: 30 steps of the
+  default layout with densify rounds at 10 and 20, a prune-only round at
+  30, an opacity reset at 15, previews, a PLY snapshot and checkpoints at
+  15 and 30 into a temporary directory; the capacity grows from 131,072 to
+  262,144, and K2, K1, K3 and K4 are checked on the grown trainer's
+  buffers;
+* resume: a new Trainer restores the step-15 checkpoint and runs to 30,
+  bit-identical to the uninterrupted run (parameters, moments, counters,
+  logged losses).
 
 Each main path runs with every launch counter set to 0 just before it and
 read just after.  Every phase prints one line; any failure raises and exits
@@ -91,6 +105,28 @@ K1_OPS, K3_OPS = 24, 60
 # sorted run's (the CPU tests' step-parity tolerance).
 LOSS_RTOL = 1e-4
 SPLIT_FRAMES = 16
+# The densified training run: the default layout at the bench workload,
+# 30 steps with densify rounds at 10 and 20, a prune-only round at 30, an
+# opacity reset at 15, previews every 10 steps, a PLY snapshot at 30 and
+# checkpoints at 15 and 30.  GRAD_THRESHOLD makes the round at step 10
+# split ~15-20% of the 100,000 Gaussians (the mean gradient's 80th and 85th
+# percentiles there are ~6.8e-10 and ~1.0e-8: most Gaussians are seen from
+# few of the 4 views), which passes 85% of the 131,072 slots, so the
+# capacity grows to 262,144; DENSE_MAX_GAUSSIANS keeps it there.  The pair
+# budget is the probe peak times DENSE_HEADROOM: the densified steps render
+# more pairs.
+DENSE_STEPS = 30
+GRAD_THRESHOLD = 2e-9
+DENSE_MAX_GAUSSIANS = 262_144
+DENSIFY = dict(from_iter=10, interval=10, until_iter=20, prune_until_iter=30,
+               opacity_reset_interval=15, grad_threshold=GRAD_THRESHOLD)
+DENSE_WRITES = dict(preview_interval=10, snapshot_interval=30, checkpoint_interval=15)
+DENSE_HEADROOM = 3
+# Quantiles of the live rows' mean gradient printed for each round.
+AVG_GRAD_QUANTILES = [0.5, 0.7, 0.75, 0.8, 0.85, 0.88, 0.9, 0.95, 0.99]
+# Rows a densify round created go through exp (the split noise scale) and
+# the split children's log-scale shift: CUDA's expf is not the CPU's.
+FRESH_RTOL, FRESH_ATOL = 1e-6, 1e-7
 # The design of the backward replay K3 and K7 share (rasterize_bwd_tile.cuh),
 # named in the kernels line.
 BWD_DESIGN = ("replay: 2 pixels a thread at tile 16 (128 threads), 4 at tile 32 (256), "
@@ -712,10 +748,12 @@ def orbit_targets(ply_path: Path, device):
     return TrainData(cameras=cams, images=np.stack(images).astype(np.float32))
 
 
-def make_trainer(ply_path: Path, data, device, **layout):
+def make_trainer(ply_path: Path, data, device, train=None, **layout):
     """A Trainer at the bench workload (100,000 points of the bench scene,
     their colours, SH3, 800x800, tile TRAIN_TILE) in the record layout that
-    ``layout`` selects (RasterizerConfig fields; none: the default)."""
+    ``layout`` selects (RasterizerConfig fields; none: the default).  Without
+    ``train`` (TrainConfig fields) it runs TRAIN_STEPS steps with no densify
+    and no files."""
     from gaussiansplattingmlx_tpu_torch import config
     from gaussiansplattingmlx_tpu_torch.data import ply
     from gaussiansplattingmlx_tpu_torch.train.trainer import Trainer
@@ -725,13 +763,14 @@ def make_trainer(ply_path: Path, data, device, **layout):
     g = ply.read_gaussian_ply(ply_path)
     rgb = np.clip(g.features_dc[:, 0, :] * sh.C0 + 0.5, 0.0, 1.0)
     pc = PointCloud(coords=g.xyz, colors=(rgb * 255.0).astype(np.float32))
-    cfg = config.TrainConfig(
+    fields = dict(
         iterations=TRAIN_STEPS, init_points=N_GAUSSIANS, log_interval=5,
         output_dir="", seed=SEED, model=config.ModelConfig(sh_degree=SH_DEGREE),
         raster=config.RasterizerConfig(tile_w=TRAIN_TILE, tile_h=TRAIN_TILE, **layout),
         densify=config.DensifyConfig(from_iter=10 ** 9),
     )
-    return Trainer(cfg, data, pc, device=device)
+    fields.update(train or {})
+    return Trainer(config.TrainConfig(**fields), data, pc, device=device)
 
 
 def training_setup(ply_path: Path, data, device):
@@ -829,19 +868,19 @@ def check_layout_buffers(trainer, layout):
     return {"merge_ranks": ranks}
 
 
-def check_training_buffers(trainer, device):
+def check_training_buffers(trainer, device, label="training buffers, first step"):
     """K2, K1, K3 and K4 against their plain versions on the buffers of the
-    training run's first step: its tile and pair budget, the initial
-    parameters, view 0 and the L1 + SSIM cotangent against its target; K1
-    and K3 also bit-identical over two launches.  Returns the kernels line's
-    entries for K2, K1, K3 and K4, timed on these buffers (the shapes their
-    path gives them)."""
+    trainer's next step: its tile, pair budget and capacity, its current
+    parameters (the initial ones before its run), view 0 and the L1 + SSIM
+    cotangent against its target; K1 and K3 also bit-identical over two
+    launches.  Returns the kernels line's entries for K2, K1, K3 and K4,
+    timed on these buffers (the shapes their path gives them)."""
     from gaussiansplattingmlx_tpu_torch.ops import rasterize_cuda, staging
 
     cfg = trainer.cfg.raster
     state, views = trainer.state, trainer.views
     args, st = first_step_geometry(trainer)
-    what = f"training buffers, first step, max_pairs {cfg.max_pairs}"
+    what = f"{label}, max_pairs {cfg.max_pairs}"
     with torch.no_grad():
         e, tbl = staging.merge_table(st, *args)
         merge = merge_gather_entry(e.cum_keep, tbl, st.max_pairs, what)
@@ -919,6 +958,181 @@ def check_train_run(trainer, log, final, launches, expected, seconds, peak_mem, 
           f"{launches} | {gpu}", flush=True)
 
 
+def bits(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a).view(np.uint8)
+
+
+def require_states_match(got: dict, want: dict, fresh, what: str) -> None:
+    """Two states as ``state_to_numpy`` gives them: bit for bit, except the
+    xyz and scales of the rows a densify round created (``fresh``, a row
+    mask or None), which are held to FRESH_RTOL / FRESH_ATOL."""
+    require(set(got) == set(want), f"{what}: keys {sorted(set(got) ^ set(want))}")
+    for k, w in want.items():
+        g = got[k]
+        require(g.dtype == w.dtype and g.shape == w.shape, f"{what}: {k} {g.shape} {w.shape}")
+        if fresh is not None and k in ("param_xyz", "param_scales"):
+            require(np.array_equal(bits(g[~fresh]), bits(w[~fresh])), f"{what}: {k} differs")
+            require(np.allclose(g[fresh], w[fresh], rtol=FRESH_RTOL, atol=FRESH_ATOL),
+                    f"{what}: {k} of fresh rows beyond rtol {FRESH_RTOL} / atol {FRESH_ATOL}")
+        else:
+            require(np.array_equal(bits(g), bits(w)), f"{what}: {k} differs")
+
+
+def stats_dict(stats) -> dict:
+    return {k: int(v) for k, v in stats._asdict().items()}
+
+
+def densify_ms(step, state, noise) -> float:
+    """Device milliseconds of one densify step on a copy of ``state``
+    (CUDA events around one call, after a warm-up call on another copy)."""
+    from gaussiansplattingmlx_tpu_torch.train import trainer as trainer_mod
+
+    host = trainer_mod.state_to_numpy(state)
+    step(trainer_mod.state_from_numpy(host, noise.device), noise)
+    copy = trainer_mod.state_from_numpy(host, noise.device)
+    torch.cuda.synchronize()
+    _, ms = timed_once(lambda: step(copy, noise))
+    return ms
+
+
+def check_densify(trainer, device) -> None:
+    """The densify step (Adam reset) and the prune-only step on the card
+    against the same steps on CPU copies, from the sorted run's state after
+    its steps (gradient statistic of TRAIN_STEPS views), with one draw made
+    on the card and copied to the CPU: equal stats, a bit-exact gather map
+    and noise modes, bit-exact parameters and moments but for the fresh
+    rows' xyz and scales; each step timed on the card."""
+    from gaussiansplattingmlx_tpu_torch import config
+    from gaussiansplattingmlx_tpu_torch.train import densify
+    from gaussiansplattingmlx_tpu_torch.train import trainer as trainer_mod
+
+    cfg = dataclasses.replace(trainer.cfg, densify=config.DensifyConfig(**DENSIFY))
+    host = trainer_mod.state_to_numpy(trainer.state)
+    cap = trainer.state.params.capacity
+    noise = torch.randn((cap, 3), generator=torch.Generator(device=device).manual_seed(SEED),
+                        device=device)
+    for kind, allow in (("densify", True), ("prune-only", False)):
+        step = trainer_mod.make_densify_step(cfg, allow_densify=allow)
+        runs = {}
+        for where, dev, nz in (("card", device, noise), ("cpu", "cpu", noise.cpu())):
+            s = trainer_mod.state_from_numpy(host, dev)
+            _, stats, idx, mode = densify.split_and_prune(
+                s.params, s.num_active, s.grad_accum, s.grad_denom, nz, allow_densify=allow,
+                **trainer_mod.densify_options(cfg))
+            s, step_stats = step(s, nz)
+            runs[where] = (stats_dict(stats), idx.cpu().numpy(), mode.cpu().numpy(),
+                           trainer_mod.state_to_numpy(s), stats_dict(step_stats))
+        (gs, gi, gm, gstate, gss), (cs, ci, cm, cstate, css) = runs["card"], runs["cpu"]
+        require(gs == cs and gss == css == gs, f"{kind}: stats card {gs} / {gss}, cpu {cs} / {css}")
+        require(np.array_equal(gi, ci) and np.array_equal(gm, cm),
+                f"{kind}: gather map or noise modes differ")
+        fresh = cm != 0
+        require(fresh.any() == allow and fresh.sum() == 2 * (cs["n_split"] + cs["n_clone"]),
+                f"{kind}: {int(fresh.sum())} fresh rows for {cs}")
+        require_states_match(gstate, cstate, fresh, f"{kind} card vs cpu")
+        err = float(np.abs(gstate["param_xyz"] - cstate["param_xyz"]).max(initial=0.0))
+        ms = densify_ms(step, trainer.state, noise)
+        print(f"densify ({kind}, card == cpu): stats {gs} from {int(host['num_active'])} of "
+              f"{cap} slots after {TRAIN_STEPS} steps (grad_threshold {GRAD_THRESHOLD}); "
+              f"gather map and noise modes bit-exact, parameters and moments bit-exact but "
+              f"{int(fresh.sum())} fresh rows' xyz/scales (max abs err {err:.3g}); "
+              f"{ms:.4f} ms device time (one call, CUDA events)", flush=True)
+
+
+def dense_config(out_dir) -> dict:
+    """TrainConfig fields of the densified run, writing into ``out_dir``
+    (none: no files)."""
+    from gaussiansplattingmlx_tpu_torch import config
+
+    return dict(iterations=DENSE_STEPS, output_dir=str(out_dir or ""),
+                model=config.ModelConfig(sh_degree=SH_DEGREE,
+                                         max_gaussians=DENSE_MAX_GAUSSIANS),
+                raster=config.RasterizerConfig(tile_w=TRAIN_TILE, tile_h=TRAIN_TILE,
+                                               max_pairs_limit=2 ** 24),
+                densify=config.DensifyConfig(**DENSIFY), **DENSE_WRITES)
+
+
+def run_densified(ply_path: Path, data, device, budget, out_dir: Path, counters):
+    """The densified training run through ``Trainer.run``, counters zeroed
+    just before and read just after; each round's stats recorded.  Returns
+    (trainer, log, seconds, launches, rounds, peak memory)."""
+    trainer = make_trainer(ply_path, data, device, train=dense_config(out_dir))
+    trainer.set_max_pairs(budget)
+    rounds = []
+
+    def recorded(fn, kind):
+        def step(state, noise):
+            cap, n = state.params.capacity, int(state.num_active)
+            avg = state.grad_accum[:n] / state.grad_denom
+            q = torch.quantile(avg, torch.tensor(AVG_GRAD_QUANTILES, device=avg.device))
+            state, stats = fn(state, noise)
+            rounds.append({"step": int(state.step), "kind": kind, "capacity": cap,
+                           **stats_dict(stats),
+                           "avg_grad_quantiles": [float(f"{v:.4g}") for v in q.tolist()]})
+            return state, stats
+        return step
+
+    trainer.densify_step = recorded(trainer.densify_step, "densify")
+    trainer.prune_step = recorded(trainer.prune_step, "prune-only")
+    for k in counters.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    log = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.run(on_metrics=log.append)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    return trainer, log, seconds, launches, rounds, torch.cuda.max_memory_allocated()
+
+
+def check_densified(trainer, log, launches, expected, rounds, out_dir: Path):
+    """The densified run's checks: its rounds, a split or clone and a prune,
+    the capacity growth, no overflow, finite losses, every step, the
+    expected launches and the files it writes.  Returns the files."""
+    require([(r["step"], r["kind"]) for r in rounds]
+            == [(10, "densify"), (20, "densify"), (30, "prune-only")], f"rounds {rounds}")
+    require(sum(r["n_split"] + r["n_clone"] for r in rounds) > 0, "no split or clone")
+    require(sum(r["n_prune"] for r in rounds) > 0, "no prune")
+    require(trainer.state.params.capacity == 2 * rounds[0]["capacity"],
+            f"capacity {rounds[0]['capacity']} -> {trainer.state.params.capacity}: no growth")
+    require(all(np.isfinite(m["loss"]) for m in log), f"losses {[m['loss'] for m in log]}")
+    require(log[-1]["overflow_pairs_acc"] == 0, "a densified step overflowed the budget")
+    require(int(trainer.state.step) == DENSE_STEPS, "not every densified step ran")
+    require(launches == expected, f"densified launches {launches}, expected {expected}")
+    files = sorted(p.relative_to(out_dir).as_posix() for p in out_dir.rglob("*") if p.is_file())
+    want = ["ckpt_15.npz", "ckpt_30.npz", "iteration_30.ply"]
+    require(all(f in files for f in want), f"files {files}")
+    pngs = [f for f in files if f.startswith("previews/") and f.endswith(".png")]
+    require(sorted(int(f.split("_")[1]) for f in pngs) == [10, 20, 30], f"previews {pngs}")
+    return files
+
+
+def check_resume(ply_path: Path, data, device, budget, ckpt: Path, full_state: dict,
+                 full_log: list, counters):
+    """A new Trainer restores the densified run's step-15 checkpoint and runs
+    to its end: parameters, moments, counters and logged losses bit-identical
+    to the uninterrupted run's."""
+    from gaussiansplattingmlx_tpu_torch.train import trainer as trainer_mod
+
+    trainer = make_trainer(ply_path, data, device, train=dense_config(None))
+    trainer.set_max_pairs(budget)
+    trainer.restore_checkpoint(ckpt)
+    start = int(trainer.state.step)
+    for k in counters.values():
+        k.launches = 0
+    log = []
+    trainer.run(on_metrics=log.append)
+    launches = {name: k.launches for name, k in counters.items()}
+    got = trainer_mod.state_to_numpy(trainer.state)
+    require_states_match(got, full_state, None, "resumed vs uninterrupted")
+    tail = [(m["iteration"], m["loss"]) for m in full_log if m["iteration"] > start]
+    mine = [(m["iteration"], m["loss"]) for m in log]
+    require(mine == tail, f"resumed losses {mine} != uninterrupted {tail}")
+    return start, mine, launches
+
+
 def run_split_serving(ply_path: Path, device, max_pairs, fused_colors, counters):
     """The split layout's serving path: render_many over SPLIT_FRAMES orbit
     frames of the bench scene at the serving run's pair budget, counters
@@ -980,6 +1194,7 @@ def main() -> int:
     from gaussiansplattingmlx_tpu_torch.ops import (
         _kernels, merge_cuda, rasterize_cuda, relayout_cuda, segsum_cuda, staging,
     )
+    from gaussiansplattingmlx_tpu_torch.train import trainer as trainer_mod
 
     # Every kernel's launch counter; each main path names what it must launch.
     counters = {"merge_gather": merge_cuda.KERNEL,
@@ -1078,6 +1293,9 @@ def main() -> int:
                         f" (probe peak {peak}; {peak16} at tile 16)")
         max_pairs = trainer.cfg.raster.max_pairs
         sorted_losses = np.array([m["loss"] for m in log])
+        # 6b. densify on the card against densify on the CPU, from this
+        # run's state
+        check_densify(trainer, device)
         del trainer
 
         # 7. the non-default layouts' training runs, at the same pair budget;
@@ -1125,6 +1343,56 @@ def main() -> int:
               f"(bit-equal: {same}); peak memory {split_mem / 2**30:.3f} GiB; launches "
               f"{split_launches} | {gpu}", flush=True)
 
+        # 9. the densified training run (default layout) through Trainer.run
+        dense_dir = Path(tmp) / "densified"
+        budget = max(512, -(-DENSE_HEADROOM * peak // 512) * 512)
+        trainer, dense_log, seconds, dense_launches, rounds, dense_mem = run_densified(
+            ply_path, data, device, budget, dense_dir, counters)
+        for r in rounds:
+            print(f"densified round: {json.dumps(r)}", flush=True)
+        files = check_densified(trainer, dense_log, dense_launches,
+                                expect(merge_gather=DENSE_STEPS, raster_fwd=DENSE_STEPS,
+                                       raster_bwd=DENSE_STEPS, segsum=DENSE_STEPS),
+                                rounds, dense_dir)
+        window = sum(5 / m["iters_per_s"] for m in dense_log[1:])
+        print(f"train densified: {DENSE_STEPS} steps, {N_GAUSSIANS} -> "
+              f"{int(trainer.state.num_active)} gaussians, capacity {rounds[0]['capacity']} -> "
+              f"{trainer.state.params.capacity}, SH{SH_DEGREE} {WIDTH}x{HEIGHT} tile "
+              f"{TRAIN_TILE}, max_pairs {trainer.cfg.raster.max_pairs} ({DENSE_HEADROOM} x probe "
+              f"peak {peak}), num_pairs {[int(m['num_pairs']) for m in dense_log]}, overflow 0; "
+              f"loss {[round(m['loss'], 5) for m in dense_log]}; "
+              f"{DENSE_STEPS / seconds:.2f} steps/s over all {DENSE_STEPS} steps, "
+              f"{5 * (len(dense_log) - 1) / window:.2f} steps/s over steps 6-{DENSE_STEPS}; "
+              f"peak memory {dense_mem / 2**30:.3f} GiB; launches {dense_launches}; files "
+              f"{files} | {gpu}", flush=True)
+        # K2, K1, K3 and K4 on the grown trainer's buffers (262,144 rows),
+        # and the densify step's time at that capacity.
+        grown = check_training_buffers(
+            trainer, device, f"densified run's buffers after step {DENSE_STEPS}")
+        noise = trainer.densify_noise(trainer.state.params.capacity)
+        densify_grown = densify_ms(trainer_mod.make_densify_step(trainer.cfg), trainer.state,
+                                   noise)
+        print(f"densify (densify): {densify_grown:.4f} ms device time at "
+              f"{trainer.state.params.capacity} slots (one call, CUDA events) | {gpu}", flush=True)
+        full_state = trainer_mod.state_to_numpy(trainer.state)
+        del trainer, noise
+
+        # 10. resume from the densified run's step-15 checkpoint
+        start, resumed, resume_launches = check_resume(
+            ply_path, data, device, budget, dense_dir / "ckpt_15.npz", full_state, dense_log,
+            counters)
+        require(resume_launches == expect(merge_gather=DENSE_STEPS - start,
+                                          raster_fwd=DENSE_STEPS - start,
+                                          raster_bwd=DENSE_STEPS - start,
+                                          segsum=DENSE_STEPS - start),
+                f"resume launches {resume_launches}")
+        print(f"resume: ckpt_15.npz restored into a new Trainer, steps {start + 1}-{DENSE_STEPS} "
+              f"(a densify round at 20, prune-only at 30): parameters, Adam moments, "
+              f"num_active {int(full_state['num_active'])} and logged losses {resumed} "
+              f"bit-identical to the uninterrupted run; launches {resume_launches} | {gpu}",
+              flush=True)
+        del full_state
+
     # K1, K2 and K4 at the sorted training run's shapes, their serving (K1,
     # K2) or tile-16 bench buffer (K4) numbers beside them.
     timed = ("ms", "call_ms", "plain_ms", "bound_ms", "max_abs_err")
@@ -1141,6 +1409,15 @@ def main() -> int:
                   "launches_by_path": fwd_paths, "design": FWD_DESIGN}
     segsum = {**train_entries["segsum"],
               **{f"bench_tile16_{k}": segsum_bench[k] for k in (*timed, "library_ms")}}
+    # K1-K4 on the densified run's grown buffers (262,144 rows).
+    merge_gather.update({f"grown_{k}": grown["merge_gather"][k] for k in timed})
+    raster_fwd.update({f"grown_{k}": grown["raster_fwd"][k] for k in (*timed, "pixel_records")})
+    raster_bwd.update({f"grown_{k}": grown["raster_bwd"][k] for k in timed})
+    segsum.update({f"grown_{k}": grown["segsum"][k] for k in (*timed, "library_ms")})
+    for name, entry in (("merge_gather", merge_gather), ("raster_fwd", raster_fwd),
+                        ("raster_bwd", raster_bwd), ("segsum", segsum)):
+        entry["launches_densified"] = dense_launches[name]
+        entry["launches_resumed"] = resume_launches[name]
 
     kernels = [
         {"name": "merge_gather", "route": "cuda",

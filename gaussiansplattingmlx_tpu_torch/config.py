@@ -69,7 +69,7 @@ class RasterizerConfig:
             if value in unported:
                 raise NotImplementedError(
                     f"RasterizerConfig.{name}={value!r} is not ported yet "
-                    f"(ROADMAP.md queue A.9)")
+                    f"(ROADMAP.md queue A.8)")
             if value not in ported:
                 raise ValueError(
                     f"RasterizerConfig.{name}={value!r}: expected one of {ported}")
@@ -119,8 +119,10 @@ class OptimizerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DensifyConfig:
-    """Split/clone/prune cadence and thresholds (not ported yet: a run whose
-    iterations reach a densify, prune or opacity-reset step raises)."""
+    """Split/clone/prune cadence and thresholds (``train/densify.py``):
+    densify rounds every ``interval`` iterations in [from_iter, until_iter],
+    prune-only rounds after it up to ``prune_until_iter``, opacity resets
+    every ``opacity_reset_interval`` iterations up to ``until_iter``."""
 
     interval: int = 100
     from_iter: int = 500

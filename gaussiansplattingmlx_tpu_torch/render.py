@@ -69,7 +69,7 @@ def render(
     if pixel_y_offset is not None or full_image_height is not None:
         raise NotImplementedError(
             "pixel-band rendering (pixel_y_offset, full_image_height) belongs to "
-            "the band-sharded train step, not ported yet: see ROADMAP.md queue A.7"
+            "the band-sharded train step, not ported yet: see ROADMAP.md queue A.6"
         )
     cfg = raster_cfg
     grad_ctx = torch.no_grad() if inference else contextlib.nullcontext()

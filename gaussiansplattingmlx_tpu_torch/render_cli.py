@@ -12,10 +12,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import struct
 import sys
 import time
-import zlib
 from pathlib import Path
 
 import numpy as np
@@ -26,6 +24,7 @@ from .data import ply as ply_mod
 from .models.gaussians import activations, params_from_numpy
 from .render import render, render_many
 from .utils.camera import Camera
+from .utils.png import write_png
 
 
 def parse_args(argv=None):
@@ -73,24 +72,6 @@ def orbit_c2w(angle: float, radius: float, elevation: float) -> np.ndarray:
     c2w = np.eye(4)
     c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, true_up, fwd, pos
     return c2w
-
-
-def write_png(path, img: np.ndarray) -> None:
-    """Write a uint8 [H, W] (grey) or [H, W, 3] (RGB) image as PNG."""
-    img = np.ascontiguousarray(img, dtype=np.uint8)
-    h, w = img.shape[:2]
-    color_type = 2 if img.ndim == 3 else 0
-    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        body = tag + data
-        return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body))
-
-    with open(path, "wb") as fh:
-        fh.write(b"\x89PNG\r\n\x1a\n")
-        fh.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)))
-        fh.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        fh.write(chunk(b"IEND", b""))
 
 
 @dataclasses.dataclass

@@ -1,16 +1,21 @@
-"""Training: the single-device train step and the host loop (torch
-counterpart of the JAX package's ``train/trainer.py``).
+"""Training: the single-device train step, the maintenance steps and the
+host loop (torch counterpart of the JAX package's ``train/trainer.py``).
 
 One step runs activations -> render (training path: staging, forward and
 backward compositing, per-Gaussian segment sum) -> L1 + SSIM (+ depth) loss
 -> backward -> Adam on the device; its metrics stay device tensors, and the
 host reads them only at log steps.  Parameters live in fixed-capacity
-buffers with an active count, as in the JAX package.
+buffers with an active count, as in the JAX package.  Densify/prune and the
+opacity reset write into those buffers in place; only capacity growth
+allocates new ones.
 
-Not ported yet (``ROADMAP.md`` queue A): densify and prune, opacity reset
-and capacity growth (A.4); previews, PLY snapshots and checkpoints (A.5);
-data-parallel and pixel-band training (A.7).  A run whose iterations would
-reach one of them raises ``NotImplementedError`` instead of skipping it.
+``Trainer.run`` does what the JAX package's does on one device, in its
+order within an iteration: train step, preview, snapshot, densify or
+prune-only round (then capacity growth), opacity reset, log (pair-budget
+grow/shrink, early stop), checkpoint.  Not ported yet (``ROADMAP.md``
+queue A): the loss-curve chart and the supervisor heartbeat, which belong
+to the training CLI (A.5), and data-parallel and pixel-band training (A.6),
+which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,18 +23,22 @@ from __future__ import annotations
 import dataclasses
 import sys
 import time
+from pathlib import Path
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..config import TrainConfig
+from ..data import ply
 from ..data.dataset import TrainData
 from ..models import gaussians
-from ..models.gaussians import GaussianParams, PARAM_NAMES
+from ..models.gaussians import GaussianParams, INACTIVE_OPACITY, PARAM_NAMES
 from ..ops import losses as losses_mod
 from ..render import render as render_fn
+from ..utils.png import write_png
 from ..utils.point_cloud import PointCloud
+from . import densify as densify_mod
 from . import optimizer as adam
 
 
@@ -193,6 +202,106 @@ def make_train_step(cfg: TrainConfig, image_width: int, image_height: int,
     return train_step
 
 
+def densify_options(cfg: TrainConfig) -> dict:
+    """The thresholds and factors of ``densify.split_and_prune`` that
+    ``cfg`` sets."""
+    d = cfg.densify
+    return dict(
+        grad_threshold=d.grad_threshold, max_scale=d.max_scale,
+        min_opacity=d.min_opacity, split_scale_div=d.split_scale_div,
+        split_noise_factor=d.split_noise_factor, clone_noise_std=d.clone_noise_std,
+        max_gaussians=cfg.model.max_gaussians, prune_world_scale=d.prune_world_scale,
+        prune_near_cameras=d.prune_near_cameras, prune_needle_ratio=d.prune_needle_ratio,
+    )
+
+
+def make_densify_step(cfg: TrainConfig, camera_centers: Optional[torch.Tensor] = None,
+                      allow_densify: bool = True) -> Callable:
+    """Build ``densify_step(state, noise) -> (state, DensifyStats)``, one
+    densify/prune round (``densify.split_and_prune``) written into the
+    state's parameter and moment tensors in place; ``noise`` is the
+    [capacity, 3] draw.  With ``reset_optimizer_state`` (the reference's
+    behaviour) Adam restarts from zero moments and count; otherwise the
+    moments follow the gather map.  ``allow_densify=False`` builds the
+    prune-only variant (``DensifyConfig.prune_until_iter``): no split or
+    clone, and the moments always follow the map, which is lossless with no
+    new rows.  The gradient statistic restarts from zero."""
+    reset_adam = cfg.densify.reset_optimizer_state and allow_densify
+    options = densify_options(cfg)
+
+    @torch.no_grad()
+    def densify_step(state: TrainState, noise: torch.Tensor):
+        new, stats, gather_idx, noise_mode = densify_mod.split_and_prune(
+            state.params, state.num_active, state.grad_accum, state.grad_denom, noise,
+            allow_densify=allow_densify, camera_centers=camera_centers, **options)
+        if not reset_adam:
+            m = densify_mod.remap_optimizer_moments(state.m, gather_idx, noise_mode)
+            v = densify_mod.remap_optimizer_moments(state.v, gather_idx, noise_mode)
+        for n in PARAM_NAMES:
+            getattr(state.params, n).copy_(new[n])
+            if reset_adam:
+                state.m[n].zero_()
+                state.v[n].zero_()
+            else:
+                state.m[n].copy_(m[n])
+                state.v[n].copy_(v[n])
+        if reset_adam:
+            state.count.zero_()
+        state.num_active.copy_(stats.num_active)
+        state.grad_accum.zero_()
+        state.grad_denom.zero_()
+        return state, stats
+
+    return densify_step
+
+
+def make_opacity_reset_step(cfg: TrainConfig) -> Callable:
+    """Build ``opacity_reset_step(state) -> state``: live opacities clamped
+    to <= ``opacity_reset_value`` and the opacity moments zeroed, so Adam
+    does not at once re-saturate them; in place."""
+
+    @torch.no_grad()
+    def opacity_reset_step(state: TrainState):
+        op = state.params.opacity
+        op.copy_(densify_mod.reset_opacity(op, state.num_active,
+                                           cfg.densify.opacity_reset_value))
+        state.m["opacity"].zero_()
+        state.v["opacity"].zero_()
+        return state
+
+    return opacity_reset_step
+
+
+@torch.no_grad()
+def grow_capacity(state: TrainState, new_capacity: int) -> TrainState:
+    """The state padded to ``new_capacity`` slots in new tensors: zeros,
+    identity quaternions (a zero quaternion puts NaN into the normalize
+    backward) and opacity ``INACTIVE_OPACITY`` in the padding rows."""
+    old = state.params.capacity
+    if new_capacity <= old:
+        return state
+    pad_n = new_capacity - old
+
+    def pad(x, fill=0.0):
+        return torch.cat([x.detach(), x.new_full((pad_n,) + tuple(x.shape[1:]), fill)])
+
+    quat_pad = state.params.rotation.new_zeros((pad_n, 4))
+    quat_pad[:, 0] = 1.0
+    p = state.params
+    params = GaussianParams(
+        xyz=pad(p.xyz), features_dc=pad(p.features_dc),
+        features_rest=pad(p.features_rest), scales=pad(p.scales),
+        rotation=torch.cat([p.rotation.detach(), quat_pad]),
+        opacity=pad(p.opacity, INACTIVE_OPACITY),
+    )
+    return dataclasses.replace(
+        state, params=params,
+        m={n: pad(x) for n, x in state.m.items()},
+        v={n: pad(x) for n, x in state.v.items()},
+        grad_accum=pad(state.grad_accum),
+    )
+
+
 def _next_pow2(n: int) -> int:
     p = 1
     while p < n:
@@ -209,9 +318,12 @@ def _resolve_device(name) -> torch.device:
 
 class Trainer:
     """Host loop on one device: camera sampling from numpy's default_rng
-    (the JAX package's stream), log lines, pair-budget auto-grow/shrink and
-    early stop.  ``device`` defaults to ``cuda``; pass ``"cpu"`` to train on
-    the CPU with the kernels' plain versions."""
+    (the JAX package's stream), previews, PLY snapshots, densify/prune
+    rounds and capacity growth, opacity resets, log lines, pair-budget
+    auto-grow/shrink, early stop and checkpoints.  ``device`` defaults to
+    ``cuda``; pass ``"cpu"`` to train on the CPU with the kernels' plain
+    versions.  The densify noise comes from a ``torch.Generator`` on the
+    device, seeded with ``config.seed`` (``densify_noise``)."""
 
     def __init__(self, config: TrainConfig, data: TrainData,
                  point_cloud: PointCloud, device="cuda"):
@@ -219,7 +331,7 @@ class Trainer:
         if par.data_parallel != 1 or par.tile_parallel != 1:
             raise NotImplementedError(
                 "data- and tile-parallel training is not ported yet: see "
-                "ROADMAP.md queue A.7")
+                "ROADMAP.md queue A.6")
         self.cfg = config
         self.data = data
         self.device = _resolve_device(device)
@@ -246,6 +358,26 @@ class Trainer:
             overflow_acc=torch.zeros((2,), dtype=torch.float32, device=dev),
         )
         self.views = stack_views(data, dev)
+        self.out_dir = Path(config.output_dir)
+        self.noise_gen = torch.Generator(device=dev).manual_seed(config.seed)
+        cam_centers = None
+        if config.densify.prune_near_cameras > 0:
+            cam_centers = torch.stack([
+                torch.as_tensor(np.asarray(c.tensors()["camera_center"], np.float32)).reshape(3)
+                for c in data.cameras]).to(dev)
+        self.densify_step = make_densify_step(config, cam_centers)
+        self.prune_step = (
+            make_densify_step(config, cam_centers, allow_densify=False)
+            if config.densify.prune_until_iter > config.densify.until_iter else None)
+        self.opacity_reset_step = make_opacity_reset_step(config)
+        if config.densify.opacity_reset_interval > 0 and config.densify.reset_optimizer_state:
+            # The reference's per-densify Adam restart (no bias correction)
+            # makes the first steps after a round ~3.16x lr; right after an
+            # opacity reset the gradients are small and noisy.
+            print("NOTE: opacity_reset_interval with reset_optimizer_state=True "
+                  "(reference Adam semantics) amplifies post-densify steps on a "
+                  "freshly-reset model — INRIA pairs resets with moment carry-over "
+                  "(reset_optimizer_state=False, implemented)", file=sys.stderr, flush=True)
         self.history: list = []
         # Overflow total already handled (host mirror of overflow_acc[0]).
         self._overflow_handled = 0.0
@@ -269,35 +401,6 @@ class Trainer:
             self.cfg, raster=dataclasses.replace(self.cfg.raster, max_pairs=max_pairs))
         self._initial_max_pairs = max_pairs
         self._build_train_step()
-
-    def _check_ported(self, start: int, iterations: int) -> None:
-        """Raise if iterations (start, iterations] reach a part of the JAX
-        trainer that is not ported yet."""
-        cfg = self.cfg
-        d = cfg.densify
-        its = range(start + 1, iterations + 1)
-        prune_only = d.prune_until_iter > d.until_iter
-        if d.interval > 0 and any(
-            it % d.interval == 0
-            and (d.from_iter <= it <= d.until_iter
-                 or (prune_only and d.until_iter < it <= d.prune_until_iter))
-            for it in its
-        ):
-            raise NotImplementedError(
-                "densify/prune steps are not ported yet (ROADMAP.md queue A.4): "
-                "set densify.from_iter past the run's iterations")
-        if d.opacity_reset_interval > 0 and any(
-                it % d.opacity_reset_interval == 0 and it <= d.until_iter for it in its):
-            raise NotImplementedError(
-                "opacity reset is not ported yet (ROADMAP.md queue A.4)")
-        if cfg.output_dir:
-            for name, every in (("preview", cfg.preview_interval),
-                                ("snapshot", cfg.snapshot_interval),
-                                ("checkpoint", cfg.checkpoint_interval)):
-                if every and any(it % every == 0 for it in its):
-                    raise NotImplementedError(
-                        f"{name} writing is not ported yet (ROADMAP.md queue A.5): "
-                        f"set output_dir to '' or the {name} interval past the run")
 
     def _maybe_grow_raster(self, metrics: Dict) -> None:
         """Pair-budget overflow since the last handling (the in-graph run
@@ -371,19 +474,41 @@ class Trainer:
         self._pairs_peak = 0.0
         self._pairs_obs = 0
 
+    def densify_noise(self, capacity: int) -> torch.Tensor:
+        """The [capacity, 3] standard-normal draw of one densify round."""
+        return torch.randn((capacity, 3), generator=self.noise_gen, dtype=torch.float32,
+                           device=self.device)
+
     def run(self, iterations: Optional[int] = None,
             on_metrics: Optional[Callable] = None) -> Dict:
         """Train up to ``iterations`` (default ``cfg.iterations``); returns the
         last logged metrics (host floats)."""
         cfg = self.cfg
+        d = cfg.densify
         iterations = iterations if iterations is not None else cfg.iterations
-        start = int(self.state.step)
-        self._check_ported(start, iterations)
+        start = int(self.state.step)  # nonzero when resumed from a checkpoint
         last_log, last_step = time.time(), start
         final = {}
         for it in range(start + 1, iterations + 1):
             view_idx = int(self.rng.integers(0, self.data.num_views))
-            self.state, metrics, _ = self.train_step(self.state, self.views, view_idx)
+            self.state, metrics, image = self.train_step(self.state, self.views, view_idx)
+            if it % cfg.preview_interval == 0 and cfg.output_dir:
+                self.save_preview(it, image, view_idx)
+            if it % cfg.snapshot_interval == 0 and cfg.output_dir:
+                self.save_snapshot(it)
+
+            in_densify = d.from_iter <= it <= d.until_iter
+            in_prune_only = self.prune_step is not None and d.until_iter < it <= d.prune_until_iter
+            if it % d.interval == 0 and (in_densify or in_prune_only):
+                step_fn = self.densify_step if in_densify else self.prune_step
+                noise = self.densify_noise(self.state.params.capacity)
+                self.state, _ = step_fn(self.state, noise)
+                self.maybe_grow()
+
+            if d.opacity_reset_interval > 0 and it % d.opacity_reset_interval == 0 \
+                    and it <= d.until_iter:
+                self.state = self.opacity_reset_step(self.state)
+
             if it % cfg.log_interval == 0 or it == iterations:
                 m = {k: float(v) for k, v in metrics.items()}
                 self._maybe_grow_raster(m)
@@ -402,4 +527,66 @@ class Trainer:
                     on_metrics(m)
                 if m["loss"] < cfg.early_stop_loss:
                     break
+            if cfg.checkpoint_interval and it % cfg.checkpoint_interval == 0 and cfg.output_dir:
+                self.save_checkpoint(it)
         return final
+
+    def maybe_grow(self) -> None:
+        """Double the capacity (up to the power of two that holds
+        ``max_gaussians``) once more than 85% of it is live."""
+        cap = self.state.params.capacity
+        n = int(self.state.num_active)
+        if n > 0.85 * cap and cap < self.cfg.model.max_gaussians:
+            new_cap = min(cap * 2, _next_pow2(self.cfg.model.max_gaussians))
+            self.state = grow_capacity(self.state, new_cap)
+
+    def save_preview(self, iteration: int, image: torch.Tensor, view_idx: int) -> None:
+        """The rendered image beside its target, as one PNG under previews/."""
+        d = self.out_dir / "previews"
+        d.mkdir(parents=True, exist_ok=True)
+        rendered = np.clip(image.cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
+        gt = np.clip(self.data.images[view_idx] * 255.0, 0, 255).astype(np.uint8)
+        write_png(d / f"iter_{iteration:06d}_v{view_idx}.png",
+                  np.concatenate([rendered, gt], axis=1))
+
+    def save_snapshot(self, iteration: int) -> None:
+        """The live rows' raw parameters as a Gaussian PLY."""
+        n = int(self.state.num_active)
+        p = self.state.params.to_numpy()
+        ply.write_gaussian_ply(
+            self.out_dir / f"iteration_{iteration}.ply",
+            p["xyz"][:n], p["features_dc"][:n], p["features_rest"][:n],
+            p["opacity"][:n], p["scales"][:n], p["rotation"][:n],
+        )
+
+    def save_checkpoint(self, iteration: int) -> None:
+        from . import checkpoint
+
+        checkpoint.save(self.out_dir / f"ckpt_{iteration}.npz", self.state, self.cfg,
+                        host_rng=self.rng, generator=self.noise_gen)
+
+    def restore_checkpoint(self, path) -> None:
+        """Resume from a checkpoint of either package.  The camera sequence
+        replays; the densify noise replays only from a checkpoint the port
+        wrote on this kind of device."""
+        from . import checkpoint
+
+        self.state, host_rng, gen_state = checkpoint.load(path, self.device)
+        if host_rng is not None:
+            self.rng = host_rng
+        if gen_state is not None:
+            self.noise_gen.set_state(gen_state)
+        else:
+            print(f"NOTE: {path} holds no torch generator state for a {self.device.type} "
+                  "generator: the densify noise will not replay the saved run's",
+                  file=sys.stderr, flush=True)
+        # Overflow accumulated before the checkpoint was handled then.
+        self._overflow_handled = float(self.state.overflow_acc[0])
+        # An auto-grown pair budget is run-time state that the saved config
+        # records: adopt it when larger, or the resumed run would truncate
+        # (and grow) its way through the same overflows again.
+        saved = checkpoint.load_config(path)
+        if saved is not None and saved.raster.max_pairs > self.cfg.raster.max_pairs:
+            self.cfg = dataclasses.replace(self.cfg, raster=dataclasses.replace(
+                self.cfg.raster, max_pairs=saved.raster.max_pairs))
+            self._build_train_step()

@@ -75,7 +75,7 @@ def test_render_training_path_not_ported():
     """The training render itself is ported (tests/test_torch_train_*.py);
     its pixel-band form, used only by the band-sharded step, is not."""
     params, c2w = scene_numpy(n=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A.7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A.6"):
         gp = params_from_numpy(params, "cpu")
         means, shs, opacity, scales, rots = activations(gp)
         t = Camera.from_c2w(W, H, FOCAL, FOCAL, c2w).tensors()
