@@ -40,7 +40,18 @@ and checks each against its plain PyTorch version at the shapes of its path:
   buffers;
 * resume: a new Trainer restores the step-15 checkpoint and runs to 30,
   bit-identical to the uninterrupted run (parameters, moments, counters,
-  logged losses).
+  logged losses);
+* the command-line path: the COLMAP loader on the vendored scene
+  (tests/fixtures/vendor_scene, 10 views 256x192) at factors 1.0 and 0.5
+  without Pillow; ``train_cli.main`` on that scene at the default config
+  (SH4, tile 16, densify from step 500) for 1,099 steps, ``eval_cli.main``
+  on its step-100 and final PLYs (eval PSNR up by at least 1.5 dB, to at
+  least 12 dB) and a resume from its step-500 checkpoint, whose final
+  checkpoint equals the uninterrupted run's; then ``train_cli.main`` for 600
+  steps and ``eval_cli.main`` on a full-width scene (12 views 800x800
+  ray-traced by scripts/make_vendor_scene.py into a temporary directory,
+  its 16,381-point surface sample) at the default config, and K2, K1, K3
+  and K4 checked and timed on that run's last buffers.
 
 Each main path runs with every launch counter set to 0 just before it and
 read just after.  Every phase prints one line; any failure raises and exits
@@ -52,7 +63,10 @@ file, and nvcc.  Imports no JAX.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
+import multiprocessing
+import os
 import subprocess
 import sys
 import tempfile
@@ -136,6 +150,36 @@ BWD_DESIGN = ("replay: 2 pixels a thread at tile 16 (128 threads), 4 at tile 32 
 FWD_DESIGN = ("one pixel a thread in blocks of at most 128 pixels (whole rows: 2 blocks a tile at "
               "tile 16, 8 at tile 32), each stopping on its own pixels; cp.async double-buffered "
               "batches of 128 records as 3 x float4; 16-record groups between alive checks")
+
+# The CLI phases.  The vendored COLMAP scene trains through train_cli at the
+# default config (SH4, every point as the initial cloud, tile 16, densify
+# every 100 steps from 500, budget auto-grow from 2^20) for VENDOR_STEPS
+# steps, with checkpoints and snapshots at VENDOR_WRITES; eval_cli then
+# scores the step-100 and the final PLY.  The bars are the JAX package's
+# (tests/test_vendor_scene.py): +1.5 dB and at least 12 dB.  The run ends 99
+# steps after its last densify round (at 1,000), as a default 30,000-step
+# run ends long after its last (at 15,000): a run that ends on a round
+# writes the round's untrained splits, Adam restarted, as its final PLY
+# (17.915 dB at step 100, 14.458 dB after the round at 1,000 on the H100).
+VENDOR = ROOT / "tests" / "fixtures" / "vendor_scene"
+VENDOR_STEPS = 1099
+VENDOR_WRITES = {"checkpoint_interval": 500, "snapshot_interval": 100}
+VENDOR_RESUME = 500
+PSNR_GAIN_DB, PSNR_FLOOR_DB = 1.5, 12.0
+# The full-width scene (BASELINE.md's 800x800 flagship): the numpy ray
+# tracer of scripts/make_vendor_scene.py with its rich spheres, FULL_VIEWS
+# views of its camera ring (rendered by FULL_WORKERS processes) and its
+# surface sample of FULL_POINTS (16,381 points), trained FULL_STEPS steps at
+# the default config (densify
+# rounds at 500 and 600).  The pair budget is the default unless
+# FULL_HEADROOM times the initial demand, probed over every view, is larger:
+# no step may overflow.
+FULL_SIZE = 800
+FULL_VIEWS = 12
+FULL_POINTS = 16384
+FULL_STEPS = 600
+FULL_WORKERS = 4
+FULL_HEADROOM = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -812,15 +856,16 @@ def first_step_geometry(trainer, view: int = 0):
     from gaussiansplattingmlx_tpu_torch.ops import projection, rasterize_ref, staging
 
     cfg, state, views = trainer.cfg.raster, trainer.state, trainer.views
+    width, height = trainer.data.width, trainer.data.height
     cam = [views[k][view] for k in ("view", "proj", "camera_center", "fov_x", "fov_y",
                                     "focal_x", "focal_y")]
     with torch.no_grad():
         active = gaussians.active_mask(state.params.capacity, state.num_active)
         means, shs, opacity, scales, rots = gaussians.activations(state.params, active)
-        p = projection.project_gaussians(means, scales, rots, shs, *cam, WIDTH, HEIGHT,
-                                         SH_DEGREE, active=active)
+        p = projection.project_gaussians(means, scales, rots, shs, *cam, width, height,
+                                         trainer.cfg.model.sh_degree, active=active)
         packed = rasterize_ref.pack_gaussians(p.means2d, p.conic, p.colors, opacity, p.depths)
-    st = staging.StagingStatic(WIDTH, HEIGHT, cfg.tile_w, cfg.tile_h, cfg.max_pairs,
+    st = staging.StagingStatic(width, height, cfg.tile_w, cfg.tile_h, cfg.max_pairs,
                                cfg.chunk_size)
     return (packed, p.rect_min, p.rect_max, p.radii, p.depths), st
 
@@ -888,10 +933,10 @@ def check_training_buffers(trainer, device, label="training buffers, first step"
         sp, gid = staging._stage_train_impl(st, *args)
     require(int(sp.overflow_pairs) == 0, "training buffers overflow")
     tile = cfg.tile_w
-    grid = (-(-WIDTH // tile), -(-HEIGHT // tile))
+    grid = (-(-st.image_width // tile), -(-st.image_height // tile))
     fwd = check_fwd((sp.records_cm, sp.tile_start, sp.tile_count, *grid, tile, tile), what)
     block, _ = loss_cotangent_block(sp.records_cm, sp.tile_start, sp.tile_count,
-                                    WIDTH, HEIGHT, tile, views["target_rgb"][0])
+                                    st.image_width, st.image_height, tile, views["target_rgb"][0])
     bargs = (sp.records_cm, sp.tile_start, sp.tile_count, block, *grid, tile, tile)
     got3 = rasterize_cuda.raster_bwd(*bargs)
     again = rasterize_cuda.raster_bwd(*bargs)
@@ -1181,6 +1226,292 @@ def run_split_serving(ply_path: Path, device, max_pairs, fused_colors, counters)
     return launches, seconds, npairs, peak_mem, same
 
 
+def zero_counters(counters) -> None:
+    for k in counters.values():
+        k.launches = 0
+
+
+def cli_run(cli, argv, counters):
+    """``cli.main(argv)`` with every launch counter set to 0 just before and
+    read just after.  Returns (result, seconds, launches, peak memory)."""
+    zero_counters(counters)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    return res, seconds, launches, torch.cuda.max_memory_allocated()
+
+
+def steps_per_s(history, after: int = 0) -> float:
+    """Steps per second over the logged windows that start at or after step
+    ``after`` (each log line's iters_per_s covers the steps since the one
+    before)."""
+    its = [0] + [m["iteration"] for m in history]
+    spans = [(b - a, (b - a) / m["iters_per_s"])
+             for a, b, m in zip(its, its[1:], history) if a >= after]
+    return sum(n for n, _ in spans) / sum(t for _, t in spans)
+
+
+def check_cli_training(res, what: str) -> list:
+    """A train_cli run's checks: every step run, finite losses, no step over
+    the pair budget (the run's total, so unlogged steps count too).
+    Returns its logged metrics."""
+    history = res.trainer.history
+    require(len(history) >= 2 and all(np.isfinite(m["loss"]) for m in history),
+            f"{what}: non-finite or missing losses {[m['loss'] for m in history]}")
+    require(all(m["overflow_pairs"] == 0 for m in history)
+            and res.final["overflow_pairs_acc"] == 0,
+            f"{what}: a step overflowed the pair budget "
+            f"({[m['overflow_pairs'] for m in history]}, total {res.final['overflow_pairs_acc']})")
+    return history
+
+
+def check_cli_eval(ev, launches, views: int, expect, what: str) -> None:
+    require(launches == expect(merge_gather=views, raster_fwd=views),
+            f"{what}: launches {launches}")
+    require(ev.metrics["views"] == views and all(o == 0 for o in ev.overflow_pairs),
+            f"{what}: overflow {ev.overflow_pairs}")
+    require(all(np.isfinite(c).all() for c in ev.colors)
+            and np.isfinite(ev.metrics["psnr_mean"]), f"{what}: non-finite render or PSNR")
+
+
+def require_checkpoints_equal(a: Path, b: Path, what: str) -> None:
+    """Two checkpoint files bit for bit, but for the output directory in
+    their saved configs."""
+    with np.load(a) as za, np.load(b) as zb:
+        require(sorted(za.files) == sorted(zb.files), f"{what}: keys differ")
+        for k in za.files:
+            if k == "config_json":
+                ca, cb = (json.loads(bytes(z[k]).decode("utf-8")) for z in (za, zb))
+                ca.pop("output_dir"), cb.pop("output_dir")
+                require(ca == cb, f"{what}: saved configs differ")
+            else:
+                require(za[k].dtype == zb[k].dtype and za[k].shape == zb[k].shape
+                        and za[k].tobytes() == zb[k].tobytes(), f"{what}: {k} differs")
+
+
+def check_loader() -> None:
+    """The port's COLMAP loader on the vendored scene at factors 1.0 and 0.5,
+    its PNGs decoded and resized without Pillow."""
+    from gaussiansplattingmlx_tpu_torch.data import colmap
+
+    seconds = {}
+    for factor, size in ((1.0, (256, 192)), (0.5, (128, 96))):
+        t0 = time.perf_counter()
+        data, pcd = colmap.load_colmap(VENDOR, resize_factor=factor)
+        seconds[factor] = time.perf_counter() - t0
+        require(data.num_views == 10 and (data.width, data.height) == size
+                and pcd.size == 4000, f"vendored scene at {factor}: {data.num_views} views "
+                f"{data.width}x{data.height}, {pcd.size} points")
+        require(bool(np.isfinite(data.images).all()) and 0.1 < float(data.images.mean()) < 0.9,
+                f"vendored scene at {factor}: implausible pixels")
+    require("PIL" not in sys.modules, "the loader imported Pillow")
+    print(f"loader: load_colmap(tests/fixtures/vendor_scene): 10 views, 4000 points; "
+          f"256x192 in {seconds[1.0]:.3f} s at factor 1.0, 128x96 in {seconds[0.5]:.3f} s "
+          f"at 0.5; Pillow installed: {importlib.util.find_spec('PIL') is not None}, "
+          f"imported: no", flush=True)
+
+
+def run_vendor(tmp: Path, counters, expect, gpu: str) -> dict:
+    """The vendored scene through train_cli at the default config, eval_cli
+    on the step-100 and the final PLY, and a resume from the step-500
+    checkpoint into a fresh directory whose final checkpoint must equal the
+    uninterrupted run's.  Returns the launches of each run."""
+    from gaussiansplattingmlx_tpu_torch import eval_cli, train_cli
+
+    cfg_path = tmp / "vendor_config.json"
+    cfg_path.write_text(json.dumps(VENDOR_WRITES))
+    argv = ["--dataset", "colmap", "--root", str(VENDOR), "--resize-factor", "1.0",
+            "--iterations", str(VENDOR_STEPS), "--config", str(cfg_path), "--device", "cuda"]
+    out = tmp / "vendor"
+    res, seconds, launches, peak = cli_run(train_cli, argv + ["--output", str(out)], counters)
+    steps = VENDOR_STEPS
+    require(launches == expect(merge_gather=steps, raster_fwd=steps, raster_bwd=steps,
+                               segsum=steps), f"vendored training launches {launches}")
+    history = check_cli_training(res, "vendored training")
+    trainer = res.trainer
+    budget = trainer.cfg.raster.max_pairs
+    evals, eval_launches = {}, {}
+    for step in (100, steps):
+        ev, _, ev_launches, _ = cli_run(eval_cli, [
+            "--dataset", "colmap", "--root", str(VENDOR), "--ply",
+            str(out / f"iteration_{step}.ply"), "--resize-factor", "1.0",
+            "--max-pairs", str(budget), "--device", "cuda"], counters)
+        check_cli_eval(ev, ev_launches, 10, expect, f"vendored eval at step {step}")
+        evals[step], eval_launches[step] = ev, ev_launches
+    early, late = evals[100].metrics, evals[steps].metrics
+    require(late["psnr_mean"] >= early["psnr_mean"] + PSNR_GAIN_DB
+            and late["psnr_mean"] >= PSNR_FLOOR_DB,
+            f"vendored scene did not converge: eval PSNR {early['psnr_mean']:.3f} at step 100, "
+            f"{late['psnr_mean']:.3f} at step {steps}")
+    print(f"train_cli vendored: tests/fixtures/vendor_scene 10 views 256x192, default config "
+          f"(SH{trainer.cfg.model.sh_degree}, tile {trainer.cfg.raster.tile_w}, densify from "
+          f"{trainer.cfg.densify.from_iter} every {trainer.cfg.densify.interval}), {steps} steps: "
+          f"gaussians 4000 -> {int(trainer.state.num_active)}, capacity "
+          f"{trainer.state.params.capacity}, max_pairs {budget}, overflow 0; loss "
+          f"{history[0]['loss']:.5f} -> {history[-1]['loss']:.5f}; eval PSNR "
+          f"{early['psnr_mean']:.3f} dB (step 100) -> {late['psnr_mean']:.3f} dB, SSIM "
+          f"{early['ssim_mean']:.4f} -> {late['ssim_mean']:.4f}; pairs a view at the end "
+          f"{evals[steps].num_pairs}; {steps / seconds:.2f} steps/s over the whole CLI call "
+          f"({seconds:.2f} s), {steps_per_s(history):.2f} over the {steps} steps, "
+          f"{steps_per_s(history, 100):.2f} over steps 101-{steps}; peak memory "
+          f"{peak / 2**30:.3f} GiB; launches {launches} | {gpu}", flush=True)
+    del res, trainer
+
+    resumed, _, resume_launches, _ = cli_run(
+        train_cli, argv + ["--output", str(tmp / "vendor_resumed"), "--resume",
+                           str(out / f"ckpt_{VENDOR_RESUME}.npz")], counters)
+    left = steps - VENDOR_RESUME
+    require(resume_launches == expect(merge_gather=left, raster_fwd=left, raster_bwd=left,
+                                      segsum=left), f"resumed launches {resume_launches}")
+    require_checkpoints_equal(out / f"ckpt_{steps}.npz",
+                              tmp / "vendor_resumed" / f"ckpt_{steps}.npz", "resumed CLI run")
+    print(f"train_cli resume: --resume ckpt_{VENDOR_RESUME}.npz into a fresh directory, steps "
+          f"{VENDOR_RESUME + 1}-{steps}: ckpt_{steps}.npz bit-identical to the uninterrupted "
+          f"run's (output_dir aside); launches {resume_launches} | {gpu}", flush=True)
+    del resumed
+    return {"vendor": launches, "vendor_eval": eval_launches[steps],
+            "vendor_resumed": resume_launches}
+
+
+def vendor_module():
+    """scripts/make_vendor_scene.py as a module, its globals set as its main()
+    sets them for an 800x800 scene with --rich (main() itself, which needs
+    Pillow, is not called)."""
+    spec = importlib.util.spec_from_file_location(
+        "make_vendor_scene", ROOT / "scripts" / "make_vendor_scene.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.W = mod.H = FULL_SIZE
+    mod.FOCAL = 290.0 * FULL_SIZE / 256.0
+    mod.N_VIEWS = FULL_VIEWS
+    mod.SPHERES = mod.SPHERES + mod.RICH_SPHERES
+    return mod
+
+
+def ring_c2w(mod, i: int) -> np.ndarray:
+    """View i of make_vendor_scene's camera ring."""
+    ang = 2 * np.pi * i / FULL_VIEWS
+    pos = np.array([2.6 * np.sin(ang), 1.3 + 0.25 * np.sin(2 * ang), -2.6 * np.cos(ang)])
+    return mod.look_at_c2w(pos, np.array([0.0, 0.35, 0.0]))
+
+
+def full_view(i: int) -> np.ndarray:
+    """One ray-traced 800x800 view as uint8 (a worker process's task)."""
+    mod = vendor_module()
+    with np.errstate(invalid="ignore"):  # rays that miss the floor
+        img = mod.render_view(ring_c2w(mod, i))
+    return (img * 255 + 0.5).astype(np.uint8)
+
+
+def write_full_scene(dest: Path) -> float:
+    """The full-width COLMAP scene written into ``dest``; returns its
+    seconds."""
+    from gaussiansplattingmlx_tpu_torch.utils.png import write_png
+
+    t0 = time.perf_counter()
+    mod = vendor_module()
+    (dest / "images").mkdir(parents=True)
+    workers = min(FULL_WORKERS, os.cpu_count() or 1)
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        images = pool.map(full_view, range(FULL_VIEWS))
+    for i, img in enumerate(images):
+        write_png(dest / "images" / f"frame_{i:03d}.png", img)
+    pts, cols = mod.surface_points(np.random.default_rng(7), n=FULL_POINTS)
+    mod.write_colmap(dest, [ring_c2w(mod, i) for i in range(FULL_VIEWS)], pts, cols)
+    return time.perf_counter() - t0
+
+
+def full_budget(argv) -> tuple:
+    """(pair budget, initial peak): the trainer train_cli builds from
+    ``argv``, every view's pairs at tile 16 at its initial parameters; the
+    budget is the default unless FULL_HEADROOM times the peak is larger."""
+    from gaussiansplattingmlx_tpu_torch import train_cli
+    from gaussiansplattingmlx_tpu_torch.models import gaussians
+    from gaussiansplattingmlx_tpu_torch.ops import binning, projection
+
+    from gaussiansplattingmlx_tpu_torch.train.trainer import Trainer
+
+    args = train_cli.parse_args(argv)
+    cfg = dataclasses.replace(train_cli.build_config(args), output_dir="")
+    data, pcd = train_cli.LOADERS[args.dataset](args.root, resize_factor=cfg.resize_factor)
+    pcd, centroid = pcd.centering()
+    data = data.shift_cameras(centroid)
+    trainer = Trainer(cfg, data, pcd, device=args.device)
+    state, r = trainer.state, cfg.raster
+    peak = 0
+    with torch.no_grad():
+        active = gaussians.active_mask(state.params.capacity, state.num_active)
+        acts = gaussians.activations(state.params, active)
+        for i in range(data.num_views):
+            cam = [trainer.views[k][i] for k in ("view", "proj", "camera_center", "fov_x",
+                                                 "fov_y", "focal_x", "focal_y")]
+            p = projection.project_gaussians(acts[0], acts[3], acts[4], acts[1], *cam,
+                                             data.width, data.height, cfg.model.sh_degree,
+                                             active=active)
+            e = binning.expand_pairs(p.rect_min, p.rect_max, p.radii, data.width, data.height,
+                                     r.tile_w, r.tile_h, 512)
+            peak = max(peak, int(e.num_pairs) + int(e.overflow_pairs))
+    return max(r.max_pairs, -(-FULL_HEADROOM * peak // 512) * 512), peak
+
+
+def run_full(tmp: Path, counters, expect, gpu: str):
+    """The full-width scene through train_cli and eval_cli.  Returns (the
+    run's trainer, the launches of each run)."""
+    from gaussiansplattingmlx_tpu_torch import eval_cli, train_cli
+    from gaussiansplattingmlx_tpu_torch.data import colmap
+
+    scene = tmp / "full_scene"
+    scene_s = write_full_scene(scene)
+    t0 = time.perf_counter()
+    data, _ = colmap.load_colmap(scene, resize_factor=0.5)
+    load_half_s = time.perf_counter() - t0
+    half = FULL_SIZE // 2
+    require((data.num_views, data.width, data.height) == (FULL_VIEWS, half, half),
+            f"full scene at 0.5: {data.num_views} views {data.width}x{data.height}")
+    del data
+    argv = ["--dataset", "colmap", "--root", str(scene), "--resize-factor", "1.0",
+            "--iterations", str(FULL_STEPS), "--device", "cuda"]
+    budget, peak = full_budget(argv)
+    limit = max(budget, 2 ** 23)
+    cfg_path = tmp / "full_config.json"
+    cfg_path.write_text(json.dumps({"raster": {"max_pairs": budget, "max_pairs_limit": limit}}))
+    out = tmp / "full"
+    res, seconds, launches, peak_mem = cli_run(
+        train_cli, argv + ["--output", str(out), "--config", str(cfg_path)], counters)
+    steps = FULL_STEPS
+    require(launches == expect(merge_gather=steps, raster_fwd=steps, raster_bwd=steps,
+                               segsum=steps), f"full-width training launches {launches}")
+    history = check_cli_training(res, "full-width training")
+    require(history[-1]["loss"] < history[0]["loss"],
+            f"full-width loss did not fall: {history[0]['loss']} -> {history[-1]['loss']}")
+    trainer = res.trainer
+    ev, _, eval_launches, _ = cli_run(eval_cli, [
+        "--dataset", "colmap", "--root", str(scene), "--ply", str(out / f"iteration_{steps}.ply"),
+        "--resize-factor", "1.0", "--max-pairs", str(trainer.cfg.raster.max_pairs),
+        "--device", "cuda"], counters)
+    check_cli_eval(ev, eval_launches, FULL_VIEWS, expect, "full-width eval")
+    print(f"train_cli full width: {FULL_VIEWS} ray-traced views {FULL_SIZE}x{FULL_SIZE} "
+          f"(written in {scene_s:.1f} s), default config (SH{trainer.cfg.model.sh_degree}, "
+          f"tile {trainer.cfg.raster.tile_w}, densify "
+          f"at 500 and 600), {steps} steps: gaussians {int(history[0]['num_active'])} -> "
+          f"{int(trainer.state.num_active)}, "
+          f"capacity {trainer.state.params.capacity}; initial pair demand {peak} a view -> "
+          f"max_pairs {budget} (limit {limit}), at the end {trainer.cfg.raster.max_pairs}; "
+          f"num_pairs {int(history[0]['num_pairs'])} (step {history[0]['iteration']}) -> "
+          f"{int(history[-1]['num_pairs'])} (step {steps}), overflow 0; loss "
+          f"{history[0]['loss']:.5f} -> {history[-1]['loss']:.5f}; eval PSNR "
+          f"{ev.metrics['psnr_mean']:.3f} dB, SSIM {ev.metrics['ssim_mean']:.4f}, pairs a view "
+          f"{ev.num_pairs}; {steps_per_s(history):.2f} steps/s over all {steps} steps, "
+          f"{steps_per_s(history, 100):.2f} over steps 101-{steps} ({seconds:.2f} s for the CLI "
+          f"call); peak memory {peak_mem / 2**30:.3f} GiB; loader {load_half_s:.3f} s at "
+          f"--resize-factor 0.5; launches {launches} | {gpu}", flush=True)
+    return trainer, {"full": launches, "full_eval": eval_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1393,6 +1724,20 @@ def main() -> int:
               flush=True)
         del full_state
 
+        # 11. the COLMAP loader, without Pillow
+        check_loader()
+        # 12. the vendored scene through train_cli and eval_cli at the
+        # default config, and a resume through train_cli
+        cli_launches = run_vendor(Path(tmp), counters, expect, gpu)
+        # 13. the full-width scene through train_cli and eval_cli
+        trainer, full_launches = run_full(Path(tmp), counters, expect, gpu)
+        cli_launches.update(full_launches)
+        # 14. K2, K1, K3 and K4 on the buffers of the full-width run's last
+        # step (SH4, tile 16, densified)
+        cli = check_training_buffers(trainer, device,
+                                     f"800x800 CLI run's buffers after step {FULL_STEPS}")
+        del trainer
+
     # K1, K2 and K4 at the sorted training run's shapes, their serving (K1,
     # K2) or tile-16 bench buffer (K4) numbers beside them.
     timed = ("ms", "call_ms", "plain_ms", "bound_ms", "max_abs_err")
@@ -1414,10 +1759,17 @@ def main() -> int:
     raster_fwd.update({f"grown_{k}": grown["raster_fwd"][k] for k in (*timed, "pixel_records")})
     raster_bwd.update({f"grown_{k}": grown["raster_bwd"][k] for k in timed})
     segsum.update({f"grown_{k}": grown["segsum"][k] for k in (*timed, "library_ms")})
+    # K1-K4 on the full-width CLI run's buffers (SH4, tile 16, densified),
+    # and their launches in the CLI runs.
+    merge_gather.update({f"cli_{k}": cli["merge_gather"][k] for k in timed})
+    raster_fwd.update({f"cli_{k}": cli["raster_fwd"][k] for k in (*timed, "pixel_records")})
+    raster_bwd.update({f"cli_{k}": cli["raster_bwd"][k] for k in timed})
+    segsum.update({f"cli_{k}": cli["segsum"][k] for k in (*timed, "library_ms")})
     for name, entry in (("merge_gather", merge_gather), ("raster_fwd", raster_fwd),
                         ("raster_bwd", raster_bwd), ("segsum", segsum)):
         entry["launches_densified"] = dense_launches[name]
         entry["launches_resumed"] = resume_launches[name]
+        entry["launches_cli"] = {run: launched[name] for run, launched in cli_launches.items()}
 
     kernels = [
         {"name": "merge_gather", "route": "cuda",

@@ -56,3 +56,15 @@ class TrainData:
             t["target_depth"] = np.zeros(shape, np.float32)
             t["depth_mask"] = np.zeros(shape, np.float32)
         return t
+
+    def shift_cameras(self, centroid: np.ndarray) -> "TrainData":
+        """The same views with every camera translated by ``-centroid``: the
+        shift ``PointCloud.centering`` applied to the cloud."""
+        new_cams = []
+        for cam in self.cameras:
+            c2w = np.asarray(cam.c2w, np.float64).copy()
+            c2w[:3, 3] -= centroid
+            new_cams.append(Camera.from_c2w(cam.width, cam.height, cam.focal_x, cam.focal_y,
+                                            c2w, znear=cam.znear, zfar=cam.zfar))
+        return TrainData(cameras=new_cams, images=self.images, alphas=self.alphas,
+                         depths=self.depths)

@@ -3,7 +3,9 @@ package's ``data/ply.py``, byte-compatible with it).
 
 binary_little_endian 1.0 with a ``comment features_rest_shape M 3`` line and
 per-vertex float32 fields x,y,z,f_dc_0..2,f_rest_0..(M*3-1),opacity,
-scale_0..2,rot_0..3.  Raw (pre-activation) parameters are stored.
+scale_0..2,rot_0..3.  Raw (pre-activation) parameters are stored.  Also
+reads generic ascii / binary point-cloud PLYs (xyz + rgb), the initial cloud
+of a nerfstudio scene.
 """
 
 from __future__ import annotations
@@ -114,3 +116,63 @@ def read_gaussian_ply(path) -> GaussianPly:
             :, [col["rot_0"], col["rot_1"], col["rot_2"], col["rot_3"]]
         ].copy(),
     )
+
+
+_PLY_TYPES = {
+    "float": "<f4", "float32": "<f4", "double": "<f8", "float64": "<f8",
+    "uchar": "u1", "uint8": "u1", "char": "i1", "int8": "i1",
+    "short": "<i2", "ushort": "<u2", "int": "<i4", "int32": "<i4",
+    "uint": "<u4", "uint32": "<u4",
+}
+
+
+def read_point_cloud_ply(path):
+    """Generic xyz (+ rgb) PLY reader: ascii or binary_little_endian, the
+    vertex element's float and integer properties.  Returns (points [N, 3]
+    float32, colours [N, 3] float32 or None); colours above 1 are taken as
+    0..255 and scaled to [0, 1]."""
+    data = Path(path).read_bytes()
+    end = data.index(b"end_header\n") + len(b"end_header\n")
+    header = data[:end].decode("ascii", errors="replace").splitlines()
+    n = 0
+    fmt = None
+    props: list[tuple[str, str]] = []
+    in_vertex = False
+    for line in header[1:]:
+        parts = line.split()
+        if not parts:
+            continue
+        if parts[0] == "format":
+            fmt = parts[1]
+        elif parts[0] == "element":
+            in_vertex = parts[1] == "vertex"
+            if in_vertex:
+                n = int(parts[2])
+        elif parts[0] == "property" and in_vertex:
+            props.append((parts[1], parts[-1]))
+
+    names = [p[1] for p in props]
+    if fmt == "ascii":
+        text = data[end:].decode("ascii").split()
+        width = len(props)
+        table = np.array(text[: n * width], dtype=np.float64).reshape(n, width)
+
+        def get(name):
+            return table[:, names.index(name)]
+    elif fmt == "binary_little_endian":
+        dtype = np.dtype([(name, _PLY_TYPES[t]) for t, name in props])
+        rec = np.frombuffer(data[end:], dtype=dtype, count=n)
+
+        def get(name):
+            return rec[name].astype(np.float64)
+    else:
+        raise ValueError(f"unsupported PLY format {fmt}")
+
+    pts = np.stack([get("x"), get("y"), get("z")], axis=1).astype(np.float32)
+    colors = None
+    if all(c in names for c in ("red", "green", "blue")):
+        colors = np.stack([get("red"), get("green"), get("blue")], axis=1)
+        if colors.max() > 1.0:
+            colors = colors / 255.0
+        colors = colors.astype(np.float32)
+    return pts, colors

@@ -52,6 +52,10 @@ class _Library:
         self.build_seconds: float | None = None  # None: loaded from _build/
         self.build_log = ""
 
+    @property
+    def loaded(self) -> bool:
+        return self._cdll is not None
+
     def sources(self) -> list[Path]:
         return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
 

@@ -24,6 +24,7 @@ from .data import ply as ply_mod
 from .models.gaussians import activations, params_from_numpy
 from .render import render, render_many
 from .utils.camera import Camera
+from .utils.gif import write_gif
 from .utils.png import write_png
 
 
@@ -45,8 +46,8 @@ def parse_args(argv=None):
     p.add_argument("--tile", type=int, default=None)
     p.add_argument("--depth", action="store_true", help="also save depth maps")
     p.add_argument("--video", default=None,
-                   help="write an animated turntable (GIF, needs Pillow) to this "
-                        "path; --orbit sets the frame count")
+                   help="write an animated turntable (GIF, fixed 252-colour "
+                        "palette) to this path; --orbit sets the frame count")
     p.add_argument("--video-fps", type=int, default=30)
     p.add_argument("--no-auto-pairs", action="store_true",
                    help="disable the probe-based pair-budget sizing "
@@ -193,14 +194,8 @@ def main(argv=None) -> CliResult:
     result.max_pairs = cfg.max_pairs
 
     if args.video:
-        from PIL import Image
-
-        pils = [Image.fromarray(f) for f in frames]
-        pils[0].save(
-            args.video, save_all=True, append_images=pils[1:],
-            duration=max(1, round(1000 / args.video_fps)), loop=0,
-        )
-        print(f"wrote {args.video} ({len(pils)} frames @ {args.video_fps} fps)")
+        write_gif(args.video, frames, max(1, round(1000 / args.video_fps)))
+        print(f"wrote {args.video} ({len(frames)} frames @ {args.video_fps} fps)")
 
     if args.bench_frames > 0:
         B = max(1, min(args.bench_batch, args.bench_frames))

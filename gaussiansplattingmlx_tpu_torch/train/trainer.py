@@ -12,10 +12,14 @@ allocates new ones.
 ``Trainer.run`` does what the JAX package's does on one device, in its
 order within an iteration: train step, preview, snapshot, densify or
 prune-only round (then capacity growth), opacity reset, log (pair-budget
-grow/shrink, early stop), checkpoint.  Not ported yet (``ROADMAP.md``
-queue A): the loss-curve chart and the supervisor heartbeat, which belong
-to the training CLI (A.5), and data-parallel and pixel-band training (A.6),
-which raises ``NotImplementedError``.
+grow/shrink, early stop), checkpoint.  It refreshes the supervisor
+heartbeat (``metrics.jsonl``'s mtime) where the JAX package does, whenever
+the train step is rebuilt, and before the port's long pauses: the kernels'
+build at first use and a capacity growth.  The training CLI
+(``train_cli.py``) draws the loss curve after the run
+(``save_loss_curve``).  Not ported yet (``ROADMAP.md`` queue A):
+data-parallel and pixel-band training (A.6), which raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,8 +38,10 @@ from ..data import ply
 from ..data.dataset import TrainData
 from ..models import gaussians
 from ..models.gaussians import GaussianParams, INACTIVE_OPACITY, PARAM_NAMES
+from ..ops import _kernels
 from ..ops import losses as losses_mod
 from ..render import render as render_fn
+from ..utils.chart import two_axis_chart
 from ..utils.png import write_png
 from ..utils.point_cloud import PointCloud
 from . import densify as densify_mod
@@ -309,7 +315,8 @@ def _next_pow2(n: int) -> int:
     return p
 
 
-def _resolve_device(name) -> torch.device:
+def resolve_device(name) -> torch.device:
+    """``torch.device(name)``; a CUDA device that is missing is an error."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {name!r} requested but no CUDA device is available")
@@ -334,7 +341,7 @@ class Trainer:
                 "ROADMAP.md queue A.6")
         self.cfg = config
         self.data = data
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.rng = np.random.default_rng(config.seed)
         pc = point_cloud.random_sample(config.init_points, seed=config.seed)
         capacity = max(config.model.initial_capacity, _next_pow2(pc.size))
@@ -389,6 +396,7 @@ class Trainer:
         self._build_train_step()
 
     def _build_train_step(self):
+        self._touch_heartbeat()
         self.train_step = make_train_step(
             self.cfg, self.data.width, self.data.height,
             self.cfg.model.sh_degree, self.cfg.iterations,
@@ -487,6 +495,9 @@ class Trainer:
         d = cfg.densify
         iterations = iterations if iterations is not None else cfg.iterations
         start = int(self.state.step)  # nonzero when resumed from a checkpoint
+        if self.device.type == "cuda" and not _kernels.LIBRARY.loaded:
+            self._touch_heartbeat()
+            _kernels.LIBRARY.cdll()
         last_log, last_step = time.time(), start
         final = {}
         for it in range(start + 1, iterations + 1):
@@ -538,7 +549,31 @@ class Trainer:
         n = int(self.state.num_active)
         if n > 0.85 * cap and cap < self.cfg.model.max_gaussians:
             new_cap = min(cap * 2, _next_pow2(self.cfg.model.max_gaussians))
+            self._touch_heartbeat()
             self.state = grow_capacity(self.state, new_cap)
+
+    def _touch_heartbeat(self) -> None:
+        """Refresh the supervisor heartbeat (``metrics.jsonl``'s mtime in the
+        output directory) before a long pause, so that a supervisor reading
+        a stale heartbeat as a stall does not kill and restart the run into
+        the same pause."""
+        if self.cfg.output_dir:
+            try:
+                (self.out_dir / "metrics.jsonl").touch()
+            except OSError:
+                pass
+
+    def save_loss_curve(self) -> None:
+        """Loss (left axis) and PSNR (right axis) against iteration over the
+        logged steps, as an 800x400 RGB PNG, ``loss_curve.png`` in the output
+        directory."""
+        if not self.history:
+            return
+        img = two_axis_chart([m["iteration"] for m in self.history],
+                             [m["loss"] for m in self.history],
+                             [m["psnr"] for m in self.history],
+                             "loss", "psnr (dB)", "iteration")
+        write_png(self.out_dir / "loss_curve.png", img)
 
     def save_preview(self, iteration: int, image: torch.Tensor, view_idx: int) -> None:
         """The rendered image beside its target, as one PNG under previews/."""

@@ -88,6 +88,19 @@ class Camera:
             zfar=float(zfar),
         )
 
+    @staticmethod
+    def from_intrinsics(
+        width: int,
+        height: int,
+        intrinsic: np.ndarray,
+        c2w: np.ndarray,
+        znear: float = 0.1,
+        zfar: float = 100.0,
+    ) -> "Camera":
+        """From a 3x3 or 4x4 intrinsic matrix (focal on the diagonal)."""
+        K = np.asarray(intrinsic, dtype=np.float64)
+        return Camera.from_c2w(width, height, float(K[0, 0]), float(K[1, 1]), c2w, znear, zfar)
+
     def tensors(self) -> dict:
         """Flat dict of float32 arrays used by the projection op."""
         return {
@@ -99,3 +112,21 @@ class Camera:
             "focal_x": np.float32(self.focal_x),
             "focal_y": np.float32(self.focal_y),
         }
+
+
+def opengl_to_opencv_c2w(c2w: np.ndarray) -> np.ndarray:
+    """Blender/OpenGL camera-to-world -> OpenCV convention: invert, negate
+    rows 1-2 of the w2c, invert again (the JAX package's formulation, kept
+    literally so the float64 results match)."""
+    c2w = np.asarray(c2w, dtype=np.float64).reshape(4, 4)
+    w2c = np.linalg.inv(c2w)
+    w2c[1:3, :] *= -1.0
+    return np.linalg.inv(w2c)
+
+
+def spatial_lr_scale_auto(cameras) -> float:
+    """INRIA-style position-LR scene scaling: 1.1 x the radius of the camera
+    bounding sphere (the largest distance of a camera center from their
+    centroid), for ``OptimizerConfig.spatial_lr_scale``."""
+    centers = np.stack([np.asarray(c.tensors()["camera_center"]) for c in cameras])
+    return float(1.1 * np.linalg.norm(centers - centers.mean(0), axis=1).max())

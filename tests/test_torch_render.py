@@ -119,3 +119,31 @@ def test_render_cli_cuda_without_gpu_is_an_error(tmp_path, monkeypatch):
     )
     with pytest.raises(RuntimeError, match="no CUDA device"):
         render_cli.main(["--ply", str(tmp_path / "s.ply"), "--out", str(tmp_path)])
+
+
+def test_render_cli_video_gif_decodes(tmp_path):
+    """``--video`` writes a looping GIF of the orbit frames without Pillow;
+    Pillow reads it back frame for frame, each frame the render on the
+    GIF's fixed palette."""
+    from PIL import Image, ImageSequence
+
+    from gaussiansplattingmlx_tpu_torch.utils import gif
+
+    params, _ = scene_numpy(n=80, seed=5, sh_degree=0)
+    ply.write_gaussian_ply(tmp_path / "scene.ply", params["xyz"], params["features_dc"],
+                           params["features_rest"], params["opacity"], params["scales"],
+                           params["rotation"])
+    video = tmp_path / "orbit.gif"
+    res = render_cli.main([
+        "--ply", str(tmp_path / "scene.ply"), "--out", str(tmp_path / "renders"),
+        "--orbit", "3", "--width", "40", "--height", "32", "--focal", "40",
+        "--video", str(video), "--video-fps", "25", "--device", "cpu",
+    ])
+    with Image.open(video) as im:
+        frames = [np.asarray(f.convert("RGB")) for f in ImageSequence.Iterator(im)]
+        assert im.info["loop"] == 0 and im.info["duration"] == 40
+    assert len(frames) == 3
+    for got, color in zip(frames, res.colors):
+        rendered = np.clip(color * 255.0, 0, 255).astype(np.uint8)
+        want = gif._palette()[gif._quantise(rendered)].reshape(rendered.shape)
+        np.testing.assert_array_equal(got, want)

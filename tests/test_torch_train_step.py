@@ -3,7 +3,7 @@ against the JAX package's (backend="pallas_interpret", train_staging
 "sorted") from one state carried across by state_from_numpy; the state's
 round trip through the JAX checkpoint format; and the port's Trainer on a
 small synthetic scene (loss falls, pair-budget auto-grow, unported parts
-raise)."""
+raise, the heartbeat and the loss curve)."""
 
 import dataclasses
 
@@ -250,13 +250,39 @@ def test_trainer_budget_grows_and_shrinks_per_layout(synthetic, capsys, layout):
 
 @pytest.mark.parametrize("change,match", [
     (dict(parallel=config.ParallelConfig(data_parallel=2)), "A.6"),
+    (dict(parallel=config.ParallelConfig(tile_parallel=2)), "A.6"),
 ])
 def test_trainer_raises_on_unported_parts(synthetic, change, match):
+    """What the port has not ported raises, naming its ROADMAP.md item."""
     pts, cols, cams, images = synthetic
     with pytest.raises(NotImplementedError, match=match):
         tr = trainer.Trainer(_cfg(iterations=4, **change), TrainData(cams, images),
                              PointCloud(pts, cols * 255.0), device="cpu")
         tr.run()
+
+
+def test_trainer_heartbeat_and_loss_curve(synthetic, tmp_path):
+    """The heartbeat file appears when the train step is built and is
+    touched again before a capacity growth; the loss curve is an 800x400
+    RGB PNG."""
+    import os
+
+    from gaussiansplattingmlx_tpu_torch.utils.png import read_png
+
+    pts, cols, cams, images = synthetic
+    tr = trainer.Trainer(_cfg(iterations=4, log_interval=1, output_dir=str(tmp_path)),
+                         TrainData(cams, images), PointCloud(pts, cols * 255.0),
+                         device="cpu")
+    beat = tmp_path / "metrics.jsonl"
+    assert beat.exists()
+    os.utime(beat, (0, 0))
+    tr.run()
+    tr.state.num_active.fill_(tr.state.params.capacity)  # > 85% live: grows
+    tr.maybe_grow()
+    assert beat.stat().st_mtime > 0
+    tr.save_loss_curve()
+    curve = read_png(tmp_path / "loss_curve.png")
+    assert curve.shape == (400, 800, 3) and curve.dtype == np.uint8
 
 
 def test_trainer_cuda_without_gpu_is_an_error(synthetic, monkeypatch):
