@@ -51,7 +51,24 @@ and checks each against its plain PyTorch version at the shapes of its path:
   steps and ``eval_cli.main`` on a full-width scene (12 views 800x800
   ray-traced by scripts/make_vendor_scene.py into a temporary directory,
   its 16,381-point surface sample) at the default config, and K2, K1, K3
-  and K4 checked and timed on that run's last buffers.
+  and K4 checked and timed on that run's last buffers;
+* data- and tile-parallel training (``parallel/``), its ranks started by
+  ``parallel/launch.py`` on this one card over gloo (so their times are no
+  scaling result): ``render()`` of the bench scene at tile 16 over one
+  orbit view and over 2 bands of 400 rows and 5 of 160 in each layout
+  (the stitched bands equal the full image, their pairs add up to its);
+  from the bench workload's initial state at tile 16, one step of D=2 on
+  views (1, 4) against the mean of the two views' single-device gradients
+  then Adam, of T=2 against the single-device step, and of D=2 x T=2
+  against D=2 x T=1 (tests/test_sharding.py's bars), each mesh then
+  trained 20 steps through ``Trainer.run`` (states bit-identical on every
+  rank; steps/s, collective time, peak memory and K1-K4 launches per
+  rank); K2, K1, K3 and K4 checked and timed on a 400-row band buffer;
+  ``train_cli.main`` with ``--data-parallel 2 --device cuda:0`` on the
+  vendored scene at the default config for 600 steps (one writer), a
+  resume from its step-300 checkpoint (bit-identical), and the same run
+  with ``--multihost`` in two ranks that each see a torchrun environment
+  of a host of their own (batched views).
 
 Each main path runs with every launch counter set to 0 just before it and
 read just after.  Every phase prints one line; any failure raises and exits
@@ -62,6 +79,7 @@ file, and nvcc.  Imports no JAX.
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import importlib.util
 import json
@@ -180,6 +198,30 @@ FULL_POINTS = 16384
 FULL_STEPS = 600
 FULL_WORKERS = 4
 FULL_HEADROOM = 3
+# The data- and tile-parallel phases.  Ranks start from parallel/launch.py
+# and all compute on this one card over gloo (NCCL refuses two ranks on one
+# card), so their times are not a scaling result.  Full width: the bench
+# workload (100,000 points of the bench scene, SH3, 800x800) at tile 16, so
+# a 400-row band (2 bands) is 25 tiles and a 160-row band (5) 10; PAR_VIEWS
+# orbit views, the checked steps on views PAR_STEP_VIEWS (the JAX package's
+# tests/test_sharding.py pair).  Each D x T run trains PAR_STEPS steps; its
+# loss must fall from the mean of its first PAR_LOSS_WINDOW steps to that of
+# its last (each step's views differ).  The CLI runs: train_cli on the vendored
+# scene at the default config with --data-parallel 2 to CLI_PAR_STEPS
+# (densify rounds at 500 and 600), checkpoints every 300, a resume from 300.
+PAR_TILE = 16
+PAR_BANDS = (2, 5)
+PAR_VIEWS = 6
+PAR_STEP_VIEWS = (1, 4)
+PAR_STEPS = 20
+PAR_LOSS_WINDOW = 5
+PAR_DEVICE = "cuda:0"
+CLI_PAR_STEPS = 600
+CLI_PAR_WRITES = {"checkpoint_interval": 300, "snapshot_interval": 300}
+CLI_PAR_RESUME = 300
+# K1-K4, by C symbol (ranks report their counters by symbol).
+PAR_KERNELS = {"gsplat_merge_gather": "merge_gather", "gsplat_raster_fwd": "raster_fwd",
+               "gsplat_raster_bwd": "raster_bwd", "gsplat_segsum": "segsum"}
 
 
 class SmokeFailure(RuntimeError):
@@ -761,8 +803,8 @@ def check_raster_bwd_aligned(records_cm, aligned_start, tile_count, tile, chunk,
             "design": BWD_DESIGN}
 
 
-def orbit_targets(ply_path: Path, device):
-    """The training data: TRAIN_VIEWS orbit cameras (render_cli's orbit) and
+def orbit_targets(ply_path: Path, device, n_views: int = TRAIN_VIEWS):
+    """The training data: ``n_views`` orbit cameras (render_cli's orbit) and
     the port's own inference renders of the bench scene as targets."""
     from gaussiansplattingmlx_tpu_torch.config import RasterizerConfig
     from gaussiansplattingmlx_tpu_torch.data import ply
@@ -777,9 +819,9 @@ def orbit_targets(ply_path: Path, device):
     cams, images = [], []
     with torch.no_grad():
         means, shs, opacity, scales, rots = activations(params)
-        for i in range(TRAIN_VIEWS):
+        for i in range(n_views):
             cam = Camera.from_c2w(WIDTH, HEIGHT, FOCAL, FOCAL,
-                                  orbit_c2w(2 * np.pi * i / TRAIN_VIEWS, 4.0, 0.2))
+                                  orbit_c2w(2 * np.pi * i / n_views, 4.0, 0.2))
             t = cam.tensors()
             out, aux = render(means, shs, opacity, scales, rots,
                               *[torch.as_tensor(np.asarray(t[k])).to(device) for k in
@@ -792,9 +834,9 @@ def orbit_targets(ply_path: Path, device):
     return TrainData(cameras=cams, images=np.stack(images).astype(np.float32))
 
 
-def make_trainer(ply_path: Path, data, device, train=None, **layout):
+def make_trainer(ply_path: Path, data, device, train=None, tile=TRAIN_TILE, **layout):
     """A Trainer at the bench workload (100,000 points of the bench scene,
-    their colours, SH3, 800x800, tile TRAIN_TILE) in the record layout that
+    their colours, SH3, 800x800, tile ``tile``) in the record layout that
     ``layout`` selects (RasterizerConfig fields; none: the default).  Without
     ``train`` (TrainConfig fields) it runs TRAIN_STEPS steps with no densify
     and no files."""
@@ -810,7 +852,7 @@ def make_trainer(ply_path: Path, data, device, train=None, **layout):
     fields = dict(
         iterations=TRAIN_STEPS, init_points=N_GAUSSIANS, log_interval=5,
         output_dir="", seed=SEED, model=config.ModelConfig(sh_degree=SH_DEGREE),
-        raster=config.RasterizerConfig(tile_w=TRAIN_TILE, tile_h=TRAIN_TILE, **layout),
+        raster=config.RasterizerConfig(tile_w=tile, tile_h=tile, **layout),
         densify=config.DensifyConfig(from_iter=10 ** 9),
     )
     fields.update(train or {})
@@ -848,15 +890,19 @@ def training_setup(ply_path: Path, data, device):
     return trainer, peak, peak16
 
 
-def first_step_geometry(trainer, view: int = 0):
+def first_step_geometry(trainer, view: int = 0, band=None):
     """The staging inputs of the training run's first step (the trainer's
     current parameters, initial before its run; view 0 unless ``view``
-    says otherwise) and the staging statics of its config."""
+    says otherwise; with ``band`` = (rows, first row), that pixel band of
+    the view, as render's band window places it) and the staging statics
+    of its config."""
     from gaussiansplattingmlx_tpu_torch.models import gaussians
     from gaussiansplattingmlx_tpu_torch.ops import projection, rasterize_ref, staging
+    from gaussiansplattingmlx_tpu_torch.render import band_window
 
     cfg, state, views = trainer.cfg.raster, trainer.state, trainer.views
     width, height = trainer.data.width, trainer.data.height
+    rows, first = band if band is not None else (height, None)
     cam = [views[k][view] for k in ("view", "proj", "camera_center", "fov_x", "fov_y",
                                     "focal_x", "focal_y")]
     with torch.no_grad():
@@ -864,10 +910,11 @@ def first_step_geometry(trainer, view: int = 0):
         means, shs, opacity, scales, rots = gaussians.activations(state.params, active)
         p = projection.project_gaussians(means, scales, rots, shs, *cam, width, height,
                                          trainer.cfg.model.sh_degree, active=active)
-        packed = rasterize_ref.pack_gaussians(p.means2d, p.conic, p.colors, opacity, p.depths)
-    st = staging.StagingStatic(width, height, cfg.tile_w, cfg.tile_h, cfg.max_pairs,
+        means2d, rect_min, rect_max = band_window(p, rows, first)
+        packed = rasterize_ref.pack_gaussians(means2d, p.conic, p.colors, opacity, p.depths)
+    st = staging.StagingStatic(width, rows, cfg.tile_w, cfg.tile_h, cfg.max_pairs,
                                cfg.chunk_size)
-    return (packed, p.rect_min, p.rect_max, p.radii, p.depths), st
+    return (packed, rect_min, rect_max, p.radii, p.depths), st
 
 
 def check_layout_buffers(trainer, layout):
@@ -913,18 +960,23 @@ def check_layout_buffers(trainer, layout):
     return {"merge_ranks": ranks}
 
 
-def check_training_buffers(trainer, device, label="training buffers, first step"):
+def check_training_buffers(trainer, device, label="training buffers, first step", view=0,
+                           band=None):
     """K2, K1, K3 and K4 against their plain versions on the buffers of the
     trainer's next step: its tile, pair budget and capacity, its current
-    parameters (the initial ones before its run), view 0 and the L1 + SSIM
-    cotangent against its target; K1 and K3 also bit-identical over two
-    launches.  Returns the kernels line's entries for K2, K1, K3 and K4,
+    parameters (the initial ones before its run), view ``view`` (with
+    ``band``, one pixel band of it: ``first_step_geometry``) and the L1 +
+    SSIM cotangent against its target; K1 and K3 also bit-identical over
+    two launches.  Returns the kernels line's entries for K2, K1, K3 and K4,
     timed on these buffers (the shapes their path gives them)."""
     from gaussiansplattingmlx_tpu_torch.ops import rasterize_cuda, staging
 
     cfg = trainer.cfg.raster
     state, views = trainer.state, trainer.views
-    args, st = first_step_geometry(trainer)
+    args, st = first_step_geometry(trainer, view, band)
+    target = views["target_rgb"][view]
+    if band is not None:
+        target = target[band[1]:band[1] + band[0]]
     what = f"{label}, max_pairs {cfg.max_pairs}"
     with torch.no_grad():
         e, tbl = staging.merge_table(st, *args)
@@ -936,7 +988,7 @@ def check_training_buffers(trainer, device, label="training buffers, first step"
     grid = (-(-st.image_width // tile), -(-st.image_height // tile))
     fwd = check_fwd((sp.records_cm, sp.tile_start, sp.tile_count, *grid, tile, tile), what)
     block, _ = loss_cotangent_block(sp.records_cm, sp.tile_start, sp.tile_count,
-                                    st.image_width, st.image_height, tile, views["target_rgb"][0])
+                                    st.image_width, st.image_height, tile, target)
     bargs = (sp.records_cm, sp.tile_start, sp.tile_count, block, *grid, tile, tile)
     got3 = rasterize_cuda.raster_bwd(*bargs)
     again = rasterize_cuda.raster_bwd(*bargs)
@@ -1512,6 +1564,402 @@ def run_full(tmp: Path, counters, expect, gpu: str):
     return trainer, {"full": launches, "full_eval": eval_launches}
 
 
+def check_band_render(ply_path: Path, data, device) -> None:
+    """render() of the bench scene's Gaussians at tile PAR_TILE over one
+    orbit view's full image, then over 2 bands of 400 rows and 5 of 160,
+    in each record layout (the training render, without gradients): the
+    stitched bands are the full image within the JAX package's band
+    bars, and the bands' pairs add up to the full image's."""
+    from gaussiansplattingmlx_tpu_torch import config
+    from gaussiansplattingmlx_tpu_torch.data import ply
+    from gaussiansplattingmlx_tpu_torch.models.gaussians import activations, params_from_numpy
+    from gaussiansplattingmlx_tpu_torch.render import render
+
+    params = params_from_numpy(ply.read_gaussian_ply(ply_path), device)
+    view = PAR_STEP_VIEWS[0]
+    cam = [torch.as_tensor(np.asarray(data.cameras[view].tensors()[k])).to(device)
+           for k in ("view", "proj", "camera_center", "fov_x", "fov_y", "focal_x", "focal_y")]
+    parts = []
+    with torch.no_grad():
+        acts = activations(params)
+        for layout, selector in config.LAYOUTS.items():
+            cfg = config.RasterizerConfig(tile_w=PAR_TILE, tile_h=PAR_TILE, **selector)
+            cfg = dataclasses.replace(cfg, max_pairs=cfg.max_pairs_limit)
+            full, aux = render(*acts, *cam, WIDTH, HEIGHT, SH_DEGREE, raster_cfg=cfg)
+            require(int(aux.overflow_pairs) == 0, f"band render ({layout}): full image overflows")
+            counts = {}
+            for n_bands in PAR_BANDS:
+                rows = HEIGHT // n_bands
+                color, alpha, pairs = [], [], []
+                for b in range(n_bands):
+                    out, baux = render(*acts, *cam, WIDTH, rows, SH_DEGREE, raster_cfg=cfg,
+                                       pixel_y_offset=b * rows, full_image_height=HEIGHT)
+                    require(int(baux.overflow_pairs) == 0,
+                            f"band render ({layout}): band {b} of {n_bands} overflows")
+                    color.append(out.color)
+                    alpha.append(out.alpha)
+                    pairs.append(int(baux.num_pairs))
+                torch.testing.assert_close(torch.cat(color), full.color, rtol=COLOR_RTOL,
+                                           atol=COLOR_ATOL)
+                torch.testing.assert_close(torch.cat(alpha), full.alpha, rtol=COLOR_RTOL,
+                                           atol=COLOR_ATOL)
+                require(sum(pairs) == int(aux.num_pairs),
+                        f"band render ({layout}): {n_bands} bands' pairs {pairs} sum to "
+                        f"{sum(pairs)}, the full image has {int(aux.num_pairs)}")
+                counts[n_bands] = pairs
+            parts.append(f"{layout}: full {int(aux.num_pairs)} pairs, "
+                         + ", ".join(f"{n} x {HEIGHT // n} rows {c} (sum {sum(c)})"
+                                     for n, c in counts.items()))
+    print(f"band render: bench scene {N_GAUSSIANS} gaussians SH{SH_DEGREE} {WIDTH}x{HEIGHT} "
+          f"tile {PAR_TILE}, orbit view {view}; stitched bands == full image within rtol "
+          f"{COLOR_RTOL} / atol {COLOR_ATOL} (color, alpha), overflow 0; " + "; ".join(parts),
+          flush=True)
+
+
+def parallel_trainer(spec, device, parallel=None):
+    """The Trainer of the parallel phases: the bench workload at tile
+    PAR_TILE on the PAR_VIEWS orbit views, its pair budget ``spec["budget"]``;
+    ``parallel`` (data, tile) sets config.parallel."""
+    from gaussiansplattingmlx_tpu_torch import config
+
+    train = dict(iterations=spec["steps"], log_interval=1)
+    if parallel is not None:
+        train["parallel"] = config.ParallelConfig(data_parallel=parallel[0],
+                                                  tile_parallel=parallel[1])
+    trainer = make_trainer(Path(spec["ply"]), spec["data"], device, train=train, tile=PAR_TILE)
+    trainer.set_max_pairs(spec["budget"])
+    return trainer
+
+
+def parallel_ranks(spec, tasks):
+    """A rank of the parallel phases (every rank on cuda:0, over gloo).  For
+    each (name, data, tile, steps) task: a Trainer with that
+    config.parallel; one step of its train step on views PAR_STEP_VIEWS
+    from a copy of its initial state, the results for the single-device
+    checks; then ``Trainer.run(steps)``, the main path, with every launch
+    counter set to 0 just before and read just after.  Returns (rank 0's
+    results, this rank's report)."""
+    from gaussiansplattingmlx_tpu_torch.ops import _kernels
+    from gaussiansplattingmlx_tpu_torch.parallel import launch, sharding
+    from gaussiansplattingmlx_tpu_torch.train import trainer as trainer_mod
+
+    device = launch.rank_device(PAR_DEVICE)
+    results, report = {}, {}
+    for name, d, t, steps in tasks:
+        trainer = parallel_trainer({**spec, "steps": steps}, device, (d, t))
+        mesh = trainer.mesh
+        digest0 = sharding.state_digest(trainer.state).tolist()
+        state = trainer_mod.state_from_numpy(trainer_mod.state_to_numpy(trainer.state), device)
+        state, metrics, _ = trainer.train_step(
+            state, trainer.views, sharding.shard_view_idx(PAR_STEP_VIEWS, mesh))
+        sharding.assert_replicated(state, mesh, "after the checked step")
+        out = trainer_mod.state_to_numpy(state)
+        results[name] = {
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "state": {k: out[k] for k in ("param_xyz", "param_scales", "param_opacity",
+                                          "param_features_dc", "grad_accum")}}
+        del state, out
+        for k in _kernels.KERNELS:
+            k.launches = 0
+        mesh.collective_seconds, mesh.collective_calls = 0.0, 0
+        torch.cuda.reset_peak_memory_stats(device)
+        log = []
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        trainer.run(steps, on_metrics=log.append)
+        torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+        report[name] = {
+            "digest0": digest0, "digest": sharding.state_digest(trainer.state).tolist(),
+            "launches": _kernels.launch_counts(), "seconds": seconds, "steps": steps,
+            "collective_seconds": mesh.collective_seconds,
+            "peak_memory": torch.cuda.max_memory_allocated(device)}
+        results[name]["log"] = log
+        del trainer
+        torch.cuda.empty_cache()
+    return results, report
+
+
+def one_device_reference(trainer, view_ids):
+    """The single-device computation on the card from the trainer's
+    initial state: each view's gradient, their mean, Adam.  Returns (state
+    as numpy, mean loss, mean SSIM, mean per-view |d xyz|)."""
+    from gaussiansplattingmlx_tpu_torch.models.gaussians import PARAM_NAMES
+    from gaussiansplattingmlx_tpu_torch.train import trainer as trainer_mod
+
+    cfg, views = trainer.cfg, trainer.views
+    state = trainer_mod.state_from_numpy(trainer_mod.state_to_numpy(trainer.state),
+                                         trainer.device)
+    losses, ssims, grads = [], [], []
+    for i in view_ids:
+        def take(k):
+            return views[k][i]
+
+        leaves, _, out, aux = trainer_mod.render_view(cfg, state, take, WIDTH, HEIGHT,
+                                                      SH_DEGREE)
+        require(int(aux.overflow_pairs) == 0, f"reference render of view {i} overflows")
+        loss, parts = trainer_mod.view_loss(cfg, out.color, out.depth, take)
+        grads.append(trainer_mod.param_grads(loss, leaves))
+        losses.append(float(loss.detach()))
+        ssims.append(float(parts["ssim"].detach()))
+    n = len(grads)
+    mean = {k: sum(g[k] for g in grads) / n for k in PARAM_NAMES}
+    norm = sum(torch.sqrt(torch.sum(g["xyz"] * g["xyz"], dim=1)) for g in grads) / n
+    trainer_mod.adam_step(cfg, state, state.params.tensors(), mean, cfg.iterations)
+    out = trainer_mod.state_to_numpy(state)
+    out["grad_accum"] = norm.cpu().numpy()
+    return out, float(np.mean(losses)), float(np.mean(ssims))
+
+
+def require_close(got, want, rtol, atol, what):
+    """``got`` within rtol / atol of ``want`` (numpy), or fail naming how
+    many entries are off and by how much."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    off = np.abs(got - want) > atol + rtol * np.abs(want)
+    require(not off.any(), f"{what}: {int(off.sum())} of {off.size} entries beyond rtol {rtol} / "
+                           f"atol {atol}, max abs diff {float(np.abs(got - want).max()):.3g}")
+
+
+def parallel_line(name, desc, reports, log, gpu) -> list:
+    """The line of a D x T run (steps/s, the collective ms a step, peak
+    memory and K1-K4 launches per rank) after its checks.  Returns the K1-K4
+    launches per rank."""
+    runs = [r[name] for r in reports]
+    steps = runs[0]["steps"]
+    require(all(r["digest"] == runs[0]["digest"] for r in runs),
+            f"{name}: the ranks' states differ after {steps} steps")
+    require(len(log) == steps and all(np.isfinite(m["loss"]) for m in log),
+            f"{name}: non-finite or missing losses")
+    # Each step's loss is of other views: compare the first and the last
+    # PAR_LOSS_WINDOW steps' means.
+    first = float(np.mean([m["loss"] for m in log[:PAR_LOSS_WINDOW]]))
+    last = float(np.mean([m["loss"] for m in log[-PAR_LOSS_WINDOW:]]))
+    require(last < first, f"{name}: loss did not fall: mean {first} over the first "
+                          f"{PAR_LOSS_WINDOW} steps, {last} over the last")
+    require(all(m["overflow_pairs"] == 0 for m in log) and log[-1]["overflow_pairs_acc"] == 0,
+            f"{name}: a step overflowed the pair budget")
+    per_rank = [{PAR_KERNELS[s]: n for s, n in r["launches"].items() if s in PAR_KERNELS}
+                for r in runs]
+    others = [{s: n for s, n in r["launches"].items() if s not in PAR_KERNELS and n}
+              for r in runs]
+    require(all(all(n == steps for n in k.values()) for k in per_rank) and not any(others),
+            f"{name}: launches {[r['launches'] for r in runs]}, expected {steps} of K1-K4 "
+            "a rank and no other kernel")
+    rate = [round(steps / r["seconds"], 2) for r in runs]
+    collective = [round(1e3 * r["collective_seconds"] / steps, 3) for r in runs]
+    peak = [round(r["peak_memory"] / 2**30, 3) for r in runs]
+    print(f"{name}: {desc}; {len(runs)} ranks on one card (cuda:0, gloo) share it, so these "
+          f"numbers are not a scaling result; {steps} steps of Trainer.run, loss "
+          f"{log[0]['loss']:.5f} -> {log[-1]['loss']:.5f} (means of {PAR_LOSS_WINDOW} steps "
+          f"{first:.5f} -> {last:.5f}), num_pairs a view "
+          f"{int(log[-1]['num_pairs'])}, overflow 0, states bit-identical on every rank; "
+          f"steps/s per rank {rate}; collective ms a step per rank (host clock around the "
+          f"all-reduces and gathers) {collective}; peak memory per rank {peak} GiB; K1-K4 "
+          f"launches per rank {per_rank} | {gpu}", flush=True)
+    return per_rank
+
+
+def run_parallel(ply_path: Path, tmp: Path, device, gpu: str) -> dict:
+    """The data- and tile-parallel steps and runs at full width: D=2 against
+    the mean of single-device views, T=2 against the single-device step,
+    D=2 x T=2 against D=2 x T=1, each then trained through Trainer.run;
+    K1-K4 on a 400-row band buffer of the T=2 run.  Returns the kernels
+    line's entries."""
+    from gaussiansplattingmlx_tpu_torch.ops import binning, merge_cuda
+    from gaussiansplattingmlx_tpu_torch.parallel import launch, sharding
+
+    data = orbit_targets(ply_path, device, PAR_VIEWS)
+    check_band_render(ply_path, data, device)
+    # The pair budget: twice the initial demand of the busiest view (the
+    # steps may grow the footprints), capped at the 2^24 slots that K2's
+    # float32 carriage holds exactly; no step may overflow.
+    probe = parallel_trainer({"ply": str(ply_path), "data": data, "steps": 1,
+                              "budget": 2 ** 26}, device)
+    peak = 0
+    for v in range(PAR_VIEWS):
+        args, _ = first_step_geometry(probe, v)
+        with torch.no_grad():
+            e = binning.expand_pairs(args[1], args[2], args[3], WIDTH, HEIGHT, PAR_TILE,
+                                     PAR_TILE, 512)
+        peak = max(peak, int(e.num_pairs) + int(e.overflow_pairs))
+        del args, e
+    budget = min(max(512, -(-2 * peak // 512) * 512), merge_cuda._F32_EXACT)
+    del probe
+    spec = {"ply": str(ply_path), "data": data, "budget": budget}
+    reference = parallel_trainer({**spec, "steps": PAR_STEPS}, device)
+    ref_digest = sharding.state_digest(reference.state).tolist()
+    mean_ref, mean_loss, _ = one_device_reference(reference, PAR_STEP_VIEWS)
+    single_ref, single_loss, single_ssim = one_device_reference(reference, PAR_STEP_VIEWS[:1])
+
+    t0 = time.perf_counter()
+    two, reports2 = launch.spawn(parallel_ranks, 2, PAR_DEVICE, args=(
+        spec, [("d2", 2, 1, PAR_STEPS), ("t2", 1, 2, PAR_STEPS)]), timeout=900)
+    four, reports4 = launch.spawn(parallel_ranks, 4, PAR_DEVICE, args=(
+        spec, [("d2t2", 2, 2, PAR_STEPS)]), timeout=900)
+    spawn_s = time.perf_counter() - t0
+    for name, reports in (("d2", reports2), ("t2", reports2), ("d2t2", reports4)):
+        require(all(r[name]["digest0"] == ref_digest for r in reports),
+                f"{name}: a rank's initial state differs from the single-device trainer's")
+
+    # D=2 against the mean of the two views' single-device gradients
+    # (tests/test_sharding.py::test_dp_matches_mean_of_single_steps's bars).
+    d2 = two["d2"]
+    require_close(d2["metrics"]["loss"], mean_loss, 1e-5, 0.0, "d2 loss vs the views' mean")
+    require_close(d2["state"]["grad_accum"], mean_ref["grad_accum"], 1e-4, 1e-9,
+                  "d2 grad_accum vs the mean of the per-view |d xyz|")
+    require_close(d2["state"]["param_xyz"], mean_ref["param_xyz"], 1e-4, 1e-6,
+                  "d2 xyz vs Adam on the mean gradient")
+    # T=2 against the single-device step (test_tile_parallel_matches_single_device).
+    t2 = two["t2"]
+    require_close(t2["metrics"]["loss"], single_loss, 1e-6, 0.0, "t2 loss vs one device")
+    require_close(t2["metrics"]["ssim"], single_ssim, 1e-6, 0.0, "t2 ssim vs one device")
+    for n in ("xyz", "scales", "opacity", "features_dc"):
+        require_close(t2["state"][f"param_{n}"], single_ref[f"param_{n}"], 1e-5, 1e-7,
+                      f"t2 {n} vs one device")
+    require_close(t2["state"]["grad_accum"], single_ref["grad_accum"], 1e-4, 1e-9,
+                  "t2 grad_accum vs one device")
+    # D=2 x T=2 against D=2 x T=1 (test_data_x_tile_mesh).
+    d22 = four["d2t2"]
+    require_close(d22["metrics"]["loss"], d2["metrics"]["loss"], 1e-6, 0.0, "d2t2 loss vs d2")
+    for n in ("xyz", "scales", "opacity"):
+        require_close(d22["state"][f"param_{n}"], d2["state"][f"param_{n}"], 1e-5, 1e-7,
+                      f"d2t2 {n} vs d2")
+    require_close(d22["state"]["grad_accum"], d2["state"]["grad_accum"], 1e-4, 1e-9,
+                  "d2t2 grad_accum vs d2")
+    print(f"parallel steps: bench workload {N_GAUSSIANS} points SH{SH_DEGREE} {WIDTH}x{HEIGHT} "
+          f"tile {PAR_TILE}, {PAR_VIEWS} orbit views, max_pairs {budget} (2 x the initial "
+          f"peak {peak}, at most 2^24); one step from the initial state (identical on every rank): d2 on "
+          f"views {PAR_STEP_VIEWS} == the single-device mean of the two views (loss "
+          f"{d2['metrics']['loss']:.7f} vs {mean_loss:.7f}; grad_accum, xyz), t2 (bands of "
+          f"{HEIGHT // 2} rows of view {PAR_STEP_VIEWS[0]}) == the single-device step (loss "
+          f"{t2['metrics']['loss']:.7f} vs {single_loss:.7f}, ssim {t2['metrics']['ssim']:.7f} "
+          f"vs {single_ssim:.7f}; xyz, scales, opacity, features_dc, grad_accum), d2t2 == d2 "
+          f"(loss {d22['metrics']['loss']:.7f}), within tests/test_sharding.py's bars; pairs a "
+          f"view d2 {d2['metrics']['num_pairs']:.0f}, t2 {t2['metrics']['num_pairs']:.0f}; "
+          f"the ranks' calls {spawn_s:.1f} s | {gpu}", flush=True)
+    entries = {
+        "d2": parallel_line("d2", "data_parallel 2, views drawn from the seeded stream",
+                            reports2, two["d2"]["log"], gpu),
+        "t2": parallel_line("t2", f"tile_parallel 2, bands of {HEIGHT // 2} rows", reports2,
+                            two["t2"]["log"], gpu),
+        "d2t2": parallel_line("d2t2", "data_parallel 2 x tile_parallel 2", reports4,
+                              four["d2t2"]["log"], gpu)}
+    del mean_ref, single_ref
+    # K2, K1, K3 and K4 on a 400-row band buffer of the T=2 run's first step
+    # (band 0 of its view), timed there.
+    band_entries = check_training_buffers(
+        reference, device, f"T=2 run's band 0 ({HEIGHT // 2} rows) of view {PAR_STEP_VIEWS[0]}",
+        view=PAR_STEP_VIEWS[0], band=(HEIGHT // 2, 0))
+    del reference
+    return {"runs": entries, "band": band_entries}
+
+
+def cli_parallel_check(res, reports, out: Path, what: str) -> dict:
+    """A train_cli run of two ranks: finite, falling losses, no overflow,
+    the ranks' states bit-identical, K1-K4 once a step on every rank, and
+    one writer: each metrics row and each preview once, no file of a
+    second rank."""
+    history = res.history
+    require(len(history) >= 2 and all(np.isfinite(m["loss"]) for m in history),
+            f"{what}: non-finite or missing losses")
+    require(history[-1]["loss"] < history[0]["loss"],
+            f"{what}: loss did not fall: {history[0]['loss']} -> {history[-1]['loss']}")
+    require(all(m["overflow_pairs"] == 0 for m in history)
+            and res.final["overflow_pairs_acc"] == 0, f"{what}: a step overflowed the budget")
+    require(all(r["digest"] == reports[0]["digest"] for r in reports),
+            f"{what}: the ranks' final states differ")
+    per_rank = [{PAR_KERNELS[s]: n for s, n in r["launches"].items() if s in PAR_KERNELS}
+                for r in reports]
+    with open(out / "metrics.csv", newline="") as fh:
+        rows = [int(r["iteration"]) for r in csv.DictReader(fh)]
+    require(rows == [m["iteration"] for m in history],
+            f"{what}: metrics.csv rows {rows[:5]}... are not the logged steps once each")
+    previews = sorted(p.name for p in (out / "previews").iterdir())
+    preview_steps = [int(n.split("_")[1]) for n in previews]
+    require(len(preview_steps) == len(set(preview_steps)),
+            f"{what}: a preview step written twice: {previews}")
+    return {"launches": per_rank,
+            "collective_ms_per_step": [1e3 * r["collective_seconds"] / r["steps"]
+                                       for r in reports],
+            "peak_memory_gib": [r["peak_memory"] / 2**30 for r in reports]}
+
+
+def run_cli_parallel(tmp: Path, gpu: str) -> dict:
+    """train_cli on the vendored scene with --data-parallel 2 --device
+    cuda:0 (two ranks sharing the card) at the default config to step
+    CLI_PAR_STEPS, a resume from ckpt_CLI_PAR_RESUME whose final checkpoint
+    must equal the uninterrupted run's, and the same run with --multihost in
+    two ranks that each see a torchrun environment of their own host
+    (batched views).  Returns the kernels line's entries."""
+    from gaussiansplattingmlx_tpu_torch import train_cli
+    from gaussiansplattingmlx_tpu_torch.parallel import launch
+
+    cfg_path = tmp / "cli_parallel_config.json"
+    cfg_path.write_text(json.dumps(CLI_PAR_WRITES))
+    argv = ["--dataset", "colmap", "--root", str(VENDOR), "--resize-factor", "1.0",
+            "--iterations", str(CLI_PAR_STEPS), "--config", str(cfg_path),
+            "--device", PAR_DEVICE]
+    out = tmp / "cli_d2"
+    t0 = time.perf_counter()
+    res = train_cli.main(argv + ["--output", str(out), "--data-parallel", "2"])
+    seconds = time.perf_counter() - t0
+    entry = {"cli_d2": cli_parallel_check(res, res.ranks, out, "train_cli --data-parallel 2")}
+    history = res.history
+    require(all(r == {k: CLI_PAR_STEPS for k in r} for r in entry["cli_d2"]["launches"]),
+            f"train_cli --data-parallel 2 launches {entry['cli_d2']['launches']}")
+    print(f"train_cli --data-parallel 2 --device {PAR_DEVICE}: tests/fixtures/vendor_scene, "
+          f"default config, {CLI_PAR_STEPS} steps (densify at 500 and 600, checkpoints every "
+          f"{CLI_PAR_WRITES['checkpoint_interval']}); 2 ranks share one card over gloo (not a "
+          f"scaling result); gaussians {int(history[0]['num_active'])} -> "
+          f"{int(history[-1]['num_active'])}, loss {history[0]['loss']:.5f} -> "
+          f"{history[-1]['loss']:.5f}, psnr {history[-1]['psnr']:.2f} dB, overflow 0, final "
+          f"states bit-identical, one writer; {steps_per_s(history):.2f} steps/s over the "
+          f"{CLI_PAR_STEPS} steps ({seconds:.2f} s for the CLI call, ranks' start included); "
+          f"collective ms a step per rank "
+          f"{[round(x, 3) for x in entry['cli_d2']['collective_ms_per_step']]}; peak memory "
+          f"per rank {[round(x, 3) for x in entry['cli_d2']['peak_memory_gib']]} GiB; K1-K4 "
+          f"launches per rank {entry['cli_d2']['launches']} | {gpu}", flush=True)
+
+    resumed = tmp / "cli_d2_resumed"
+    res2 = train_cli.main(argv + ["--output", str(resumed), "--data-parallel", "2",
+                                  "--resume", str(out / f"ckpt_{CLI_PAR_RESUME}.npz")])
+    left = CLI_PAR_STEPS - CLI_PAR_RESUME
+    launches2 = [{PAR_KERNELS[s]: n for s, n in r["launches"].items() if s in PAR_KERNELS}
+                 for r in res2.ranks]
+    require(all(r == {k: left for k in r} for r in launches2),
+            f"resumed --data-parallel 2 launches {launches2}")
+    require_checkpoints_equal(out / f"ckpt_{CLI_PAR_STEPS}.npz",
+                              resumed / f"ckpt_{CLI_PAR_STEPS}.npz", "resumed --data-parallel 2")
+    entry["cli_d2_resumed"] = {"launches": launches2}
+    print(f"train_cli --data-parallel 2 resume: --resume ckpt_{CLI_PAR_RESUME}.npz into a fresh "
+          f"directory, steps {CLI_PAR_RESUME + 1}-{CLI_PAR_STEPS}: ckpt_{CLI_PAR_STEPS}.npz "
+          f"bit-identical to the uninterrupted run's (output_dir aside); K1-K4 launches per "
+          f"rank {launches2} | {gpu}", flush=True)
+
+    mh = tmp / "cli_multihost"
+    t0 = time.perf_counter()
+    res3, reports3 = launch.spawn(
+        train_cli._rank_main, 2, PAR_DEVICE, init_group=False,
+        env={"LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"}, timeout=900,
+        args=(argv + ["--output", str(mh), "--multihost"],))
+    seconds3 = time.perf_counter() - t0
+    entry["cli_multihost"] = cli_parallel_check(res3, reports3, mh, "train_cli --multihost")
+    require(all(r["batched_views"] for r in reports3), "--multihost ranks did not batch views")
+    require(all(r == {k: CLI_PAR_STEPS for k in r} for r in entry["cli_multihost"]["launches"]),
+            f"train_cli --multihost launches {entry['cli_multihost']['launches']}")
+    h3 = res3.history
+    print(f"train_cli --multihost: the same run in 2 ranks, each told by torchrun's variables "
+          f"(RANK, WORLD_SIZE, LOCAL_RANK 0, LOCAL_WORLD_SIZE 1, MASTER_ADDR, MASTER_PORT) "
+          f"that it is one host of two, joined by multihost.initialize; each keeps a batched "
+          f"store of its own data shard's views; loss {h3[0]['loss']:.5f} -> "
+          f"{h3[-1]['loss']:.5f}, psnr {h3[-1]['psnr']:.2f} dB, gaussians "
+          f"{int(h3[-1]['num_active'])}, overflow 0, final states bit-identical, one writer; "
+          f"{steps_per_s(h3):.2f} steps/s over the {CLI_PAR_STEPS} steps ({seconds3:.2f} s "
+          f"with the ranks' start); K1-K4 launches per rank "
+          f"{entry['cli_multihost']['launches']} | {gpu}", flush=True)
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1737,6 +2185,12 @@ def main() -> int:
         cli = check_training_buffers(trainer, device,
                                      f"800x800 CLI run's buffers after step {FULL_STEPS}")
         del trainer
+        # 15. the band render, the data-, tile- and data x tile-parallel
+        # steps against one device and their runs through Trainer.run; K1-K4
+        # on a 400-row band buffer
+        par = run_parallel(ply_path, Path(tmp), device, gpu)
+        # 16. train_cli --data-parallel 2, its resume and --multihost
+        cli_par = run_cli_parallel(Path(tmp), gpu)
 
     # K1, K2 and K4 at the sorted training run's shapes, their serving (K1,
     # K2) or tile-16 bench buffer (K4) numbers beside them.
@@ -1770,6 +2224,12 @@ def main() -> int:
         entry["launches_densified"] = dense_launches[name]
         entry["launches_resumed"] = resume_launches[name]
         entry["launches_cli"] = {run: launched[name] for run, launched in cli_launches.items()}
+        # K1-K4 on the T=2 run's 400-row band buffer, and their launches
+        # per rank in each D x T run (ranks sharing one card).
+        entry.update({f"band400_{k}": par["band"][name][k] for k in timed})
+        entry["launches_parallel"] = {
+            **{run: [r[name] for r in launched] for run, launched in par["runs"].items()},
+            **{run: [r[name] for r in e["launches"]] for run, e in cli_par.items()}}
 
     kernels = [
         {"name": "merge_gather", "route": "cuda",

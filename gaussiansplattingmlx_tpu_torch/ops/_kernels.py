@@ -110,6 +110,13 @@ class _Library:
 
 
 LIBRARY = _Library()
+# Every Kernel, in the order their modules created them.
+KERNELS: list = []
+
+
+def launch_counts() -> dict:
+    """Each kernel's launch counter, by C symbol."""
+    return {k.symbol: k.launches for k in KERNELS}
 
 
 class Kernel:
@@ -120,6 +127,7 @@ class Kernel:
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
+        KERNELS.append(self)
 
     def launch(self, *args) -> None:
         if self._fn is None:

@@ -38,6 +38,23 @@ class RenderAux(NamedTuple):
     overflow_pairs: torch.Tensor  # [] pairs dropped by the budget
 
 
+def band_window(p: projection.ProjectionOutputs, image_height: int, pixel_y_offset=None):
+    """(means2d, rect_min, rect_max) of a projection in the pixels of the
+    band of ``image_height`` rows that starts at full-image row
+    ``pixel_y_offset`` (None: the projection's own, full image).  The shift
+    carries the gradient; the y rects are clipped again to the band, the x
+    rects keep the full image's clamps."""
+    if pixel_y_offset is None:
+        return p.means2d, p.rect_min, p.rect_max
+    offs = torch.as_tensor(pixel_y_offset, dtype=p.means2d.dtype, device=p.means2d.device)
+    means2d = p.means2d - torch.stack([torch.zeros_like(offs), offs])
+    y_band = means2d[:, 1].detach()
+    rect_min = torch.stack([p.rect_min[:, 0], torch.clamp_min(y_band - p.radii, 0.0)], dim=-1)
+    rect_max = torch.stack(
+        [p.rect_max[:, 0], torch.clamp_max(y_band + p.radii, image_height - 1.0)], dim=-1)
+    return means2d, rect_min, rect_max
+
+
 def render(
     means3d: torch.Tensor,
     shs: torch.Tensor,
@@ -64,19 +81,20 @@ def render(
     """Render one view on the device of ``means3d``.  ``active`` [N]
     (optional) culls rows with active <= 0 in the projection.
 
+    For the pixel-band split (``parallel/sharding.py``), ``image_height`` is
+    the band's height, ``full_image_height`` the camera's full image height
+    and ``pixel_y_offset`` the band's first row: the projection uses the
+    full image, while staging and compositing run in band-local pixels.
+
     Returns (RenderOutputs with the background applied to color, RenderAux).
     """
-    if pixel_y_offset is not None or full_image_height is not None:
-        raise NotImplementedError(
-            "pixel-band rendering (pixel_y_offset, full_image_height) belongs to "
-            "the band-sharded train step, not ported yet: see ROADMAP.md queue A.6"
-        )
     cfg = raster_cfg
+    proj_height = full_image_height if full_image_height is not None else image_height
     grad_ctx = torch.no_grad() if inference else contextlib.nullcontext()
     with grad_ctx:
         p = projection.project_gaussians(
             means3d, scales, rotations, shs, view, proj, camera_center,
-            fov_x, fov_y, focal_x, focal_y, image_width, image_height, sh_degree,
+            fov_x, fov_y, focal_x, focal_y, image_width, proj_height, sh_degree,
             z_cull=cfg.z_cull,
             ndc_w_eps=cfg.ndc_w_eps,
             tanfov_clip=cfg.tanfov_clip,
@@ -85,15 +103,16 @@ def render(
             quat_norm_eps=cfg.quat_norm_eps,
             active=active,
         )
+        means2d, rect_min, rect_max = band_window(p, image_height, pixel_y_offset)
         packed = rasterize_ref.pack_gaussians(
-            p.means2d, p.conic, p.colors, opacity, p.depths
+            means2d, p.conic, p.colors, opacity, p.depths
         )
         common = dict(chunk_size=cfg.chunk_size, alpha_clamp=cfg.alpha_clamp,
                       transmittance_eps=cfg.transmittance_eps,
                       undo_denom_floor=cfg.undo_denom_floor)
         if cfg.staging == "split":
             staged = binning_mod.bin_gaussians(
-                p.rect_min, p.rect_max, p.radii, p.depths, image_width, image_height,
+                rect_min, rect_max, p.radii, p.depths, image_width, image_height,
                 cfg.tile_w, cfg.tile_h, cfg.max_pairs,
             )
             out = rasterize_cuda.rasterize_split(
@@ -109,7 +128,7 @@ def render(
                 max_pairs=cfg.max_pairs,
                 chunk=cfg.chunk_size,
             )
-            geom = (sst, packed, p.rect_min, p.rect_max, p.radii, p.depths)
+            geom = (sst, packed, rect_min, rect_max, p.radii, p.depths)
             if inference:
                 staged = staging_mod.stage_pairs_sorted(*geom)
                 starts, sorted_mode = staged.tile_start, True

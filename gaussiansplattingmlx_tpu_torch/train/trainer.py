@@ -9,17 +9,22 @@ buffers with an active count, as in the JAX package.  Densify/prune and the
 opacity reset write into those buffers in place; only capacity growth
 allocates new ones.
 
-``Trainer.run`` does what the JAX package's does on one device, in its
-order within an iteration: train step, preview, snapshot, densify or
-prune-only round (then capacity growth), opacity reset, log (pair-budget
-grow/shrink, early stop), checkpoint.  It refreshes the supervisor
-heartbeat (``metrics.jsonl``'s mtime) where the JAX package does, whenever
-the train step is rebuilt, and before the port's long pauses: the kernels'
-build at first use and a capacity growth.  The training CLI
-(``train_cli.py``) draws the loss curve after the run
-(``save_loss_curve``).  Not ported yet (``ROADMAP.md`` queue A):
-data-parallel and pixel-band training (A.6), which raises
-``NotImplementedError``.
+``Trainer.run`` does what the JAX package's does, in its order within an
+iteration: train step, preview, snapshot, densify or prune-only round (then
+capacity growth), opacity reset, log (pair-budget grow/shrink, early stop),
+checkpoint.  It refreshes the supervisor heartbeat (``metrics.jsonl``'s
+mtime) where the JAX package does, whenever the train step is rebuilt, and
+before the port's long pauses: the kernels' build at first use and a
+capacity growth.  The training CLI (``train_cli.py``) draws the loss curve
+after the run (``save_loss_curve``).
+
+Under a process group (``parallel/``) the Trainer of each rank runs the
+data- and tile-parallel step of its (data, tile) mesh position: every rank
+draws the same camera vector from the same seeded stream and takes its own
+entry, every decision (densify schedule, budget growth and shrink, capacity
+growth, early stop) is taken from replicated state or reduced metrics, the
+state is checked to be identical on every rank after each maintenance step,
+and only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import TrainConfig
 from ..data import ply
@@ -40,6 +46,7 @@ from ..models import gaussians
 from ..models.gaussians import GaussianParams, INACTIVE_OPACITY, PARAM_NAMES
 from ..ops import _kernels
 from ..ops import losses as losses_mod
+from ..parallel import multihost, sharding
 from ..render import render as render_fn
 from ..utils.chart import two_axis_chart
 from ..utils.png import write_png
@@ -116,12 +123,91 @@ VIEW_KEYS = ("view", "proj", "camera_center", "fov_x", "fov_y", "focal_x",
 def stack_views(data: TrainData, device) -> Dict[str, torch.Tensor]:
     """Every view's camera tensors and targets stacked on ``device``,
     indexed by view id."""
+    stacked = stack_views_host(data, range(data.num_views))
+    return {k: torch.as_tensor(v).to(device) for k, v in stacked.items()}
+
+
+def stack_views_host(data: TrainData, view_ids) -> Dict[str, np.ndarray]:
+    """The given views' camera tensors and targets stacked as numpy arrays,
+    in ``view_ids`` order: the batched-views store of a rank keeps only its
+    own data shard's views."""
     stacked = {k: [] for k in VIEW_KEYS}
-    for i in range(data.num_views):
-        t = data.view_tensors(i)
+    for i in view_ids:
+        t = data.view_tensors(int(i))
         for k in VIEW_KEYS:
             stacked[k].append(np.asarray(t[k], np.float32))
-    return {k: torch.as_tensor(np.stack(v)).to(device) for k, v in stacked.items()}
+    return {k: np.stack(v) for k, v in stacked.items()}
+
+
+def render_view(cfg: TrainConfig, state: TrainState, take: Callable, image_width: int,
+                image_height: int, sh_degree: int, **band):
+    """Activations (with the SH warm-up) and the training render of one view,
+    or of one pixel band of it (``band``: ``render``'s ``pixel_y_offset``
+    and ``full_image_height``).  ``take(key)`` reads the view's tensors.
+    Returns (parameter leaves, active mask, RenderOutputs, RenderAux)."""
+    leaves = state.params.tensors()
+    active = gaussians.active_mask(state.params.capacity, state.num_active)
+    params = gaussians.apply_sh_warmup(leaves, state.step, int(cfg.model.sh_warmup_interval),
+                                       sh_degree)
+    means3d, shs, opacity, scales, rotations = gaussians.activations(params, active)
+    out, aux = render_fn(
+        means3d, shs, opacity, scales, rotations,
+        take("view"), take("proj"), take("camera_center"),
+        take("fov_x"), take("fov_y"), take("focal_x"), take("focal_y"),
+        image_width, image_height, sh_degree,
+        raster_cfg=cfg.raster, white_background=cfg.white_background,
+        active=active, **band,
+    )
+    return leaves, active, out, aux
+
+
+def view_loss(cfg: TrainConfig, color: torch.Tensor, depth: torch.Tensor, take: Callable):
+    """The L1 + SSIM (+ depth) loss of a full rendered view against its
+    targets.  Returns (loss, parts)."""
+    return losses_mod.total_loss(
+        color, take("target_rgb"), depth, take("target_depth"), take("depth_mask"),
+        lambda_dssim=cfg.loss.lambda_dssim, lambda_depth=cfg.loss.lambda_depth,
+        ssim_window=cfg.loss.ssim_window, ssim_sigma=cfg.loss.ssim_sigma,
+    )
+
+
+def param_grads(loss: torch.Tensor, leaves: dict) -> dict:
+    """d loss / d parameter for every name of ``PARAM_NAMES`` (zeros where
+    the loss does not reach one)."""
+    names = list(PARAM_NAMES)
+    grad_list = torch.autograd.grad(loss, [leaves[n] for n in names], allow_unused=True)
+    return {n: (g if g is not None else torch.zeros_like(leaves[n]))
+            for n, g in zip(names, grad_list)}
+
+
+@torch.no_grad()
+def adam_step(cfg: TrainConfig, state: TrainState, leaves: dict, grads: dict,
+              total_iterations: int) -> torch.Tensor:
+    """The Adam update of the parameters and moments at the state's step's
+    learning rates, in place.  Returns the new Adam count."""
+    optim = cfg.optim
+    lrs = gaussians.learning_rates(
+        state.step, total_iterations,
+        lr_xyz=optim.lr_xyz * optim.spatial_lr_scale,
+        lr_features_dc=optim.lr_features_dc,
+        lr_features_rest=optim.lr_features_rest,
+        lr_scales=optim.lr_scales,
+        lr_rotation=optim.lr_rotation,
+        lr_opacity=optim.lr_opacity,
+        xyz_lr_floor=optim.xyz_lr_floor,
+    )
+    opt = state.adam
+    adam.update(leaves, grads, opt, lrs, beta1=optim.beta1, beta2=optim.beta2,
+                eps=optim.eps, bias_correction=optim.bias_correction)
+    return opt.count
+
+
+def grad_coverage(active: torch.Tensor, grad_accum: torch.Tensor,
+                  num_active: torch.Tensor) -> torch.Tensor:
+    """Fraction of active gaussians with any accumulated position gradient:
+    near 0 means gradients are not reaching the gaussians."""
+    covered = torch.sum(torch.where(active > 0, (grad_accum > 0).to(torch.float32), 0.0))
+    return covered / torch.clamp_min(num_active.to(torch.float32), 1.0)
 
 
 def make_train_step(cfg: TrainConfig, image_width: int, image_height: int,
@@ -131,60 +217,25 @@ def make_train_step(cfg: TrainConfig, image_width: int, image_height: int,
     The step updates the parameters and Adam moments in place and returns
     the state with its counters advanced; ``metrics`` are 0-d device tensors
     and ``color`` the rendered [H, W, 3] image (detached)."""
-    warmup = int(cfg.model.sh_warmup_interval)
-    optim = cfg.optim
 
     def train_step(state: TrainState, views: Dict, view_idx: int):
         def take(k):
             return views[k][view_idx]
 
-        leaves = state.params.tensors()
-        active = gaussians.active_mask(state.params.capacity, state.num_active)
-        params = gaussians.apply_sh_warmup(leaves, state.step, warmup, sh_degree)
-        means3d, shs, opacity, scales, rotations = gaussians.activations(params, active)
-        out, aux = render_fn(
-            means3d, shs, opacity, scales, rotations,
-            take("view"), take("proj"), take("camera_center"),
-            take("fov_x"), take("fov_y"), take("focal_x"), take("focal_y"),
-            image_width, image_height, sh_degree,
-            raster_cfg=cfg.raster, white_background=cfg.white_background,
-            active=active,
-        )
-        loss, parts = losses_mod.total_loss(
-            out.color, take("target_rgb"), out.depth, take("target_depth"),
-            take("depth_mask"),
-            lambda_dssim=cfg.loss.lambda_dssim, lambda_depth=cfg.loss.lambda_depth,
-            ssim_window=cfg.loss.ssim_window, ssim_sigma=cfg.loss.ssim_sigma,
-        )
-        names = list(PARAM_NAMES)
-        grad_list = torch.autograd.grad(loss, [leaves[n] for n in names],
-                                        allow_unused=True)
-        grads = {n: (g if g is not None else torch.zeros_like(leaves[n]))
-                 for n, g in zip(names, grad_list)}
+        leaves, active, out, aux = render_view(cfg, state, take, image_width, image_height,
+                                               sh_degree)
+        loss, parts = view_loss(cfg, out.color, out.depth, take)
+        grads = param_grads(loss, leaves)
 
         with torch.no_grad():
             # Densification statistic: accumulated per-point |d xyz|.
             grad_accum = state.grad_accum + torch.sqrt(
                 torch.sum(grads["xyz"] * grads["xyz"], dim=1))
             grad_denom = state.grad_denom + 1.0
-            lrs = gaussians.learning_rates(
-                state.step, total_iterations,
-                lr_xyz=optim.lr_xyz * optim.spatial_lr_scale,
-                lr_features_dc=optim.lr_features_dc,
-                lr_features_rest=optim.lr_features_rest,
-                lr_scales=optim.lr_scales,
-                lr_rotation=optim.lr_rotation,
-                lr_opacity=optim.lr_opacity,
-                xyz_lr_floor=optim.xyz_lr_floor,
-            )
-            opt = state.adam
-            adam.update(leaves, grads, opt, lrs, beta1=optim.beta1,
-                        beta2=optim.beta2, eps=optim.eps,
-                        bias_correction=optim.bias_correction)
+            count = adam_step(cfg, state, leaves, grads, total_iterations)
             overflow_acc = state.overflow_acc + torch.stack(
                 [aux.overflow_pairs, aux.overflow_gaussians]).to(torch.float32)
             color = out.color.detach()
-            covered = torch.sum(torch.where(active > 0, (grad_accum > 0).to(torch.float32), 0.0))
             metrics = {
                 "loss": loss.detach(), "l1": parts["l1"].detach(),
                 "ssim": parts["ssim"].detach(), "depth": parts["depth"].detach(),
@@ -194,13 +245,10 @@ def make_train_step(cfg: TrainConfig, image_width: int, image_height: int,
                 "overflow_gaussians": aux.overflow_gaussians,
                 "overflow_pairs_acc": overflow_acc[0],
                 "overflow_gaussians_acc": overflow_acc[1],
-                # Fraction of active gaussians with any position gradient:
-                # near 0 means gradients are not reaching the gaussians.
-                "grad_coverage": covered / torch.clamp_min(
-                    state.num_active.to(torch.float32), 1.0),
+                "grad_coverage": grad_coverage(active, grad_accum, state.num_active),
             }
         new_state = dataclasses.replace(
-            state, count=opt.count, grad_accum=grad_accum, grad_denom=grad_denom,
+            state, count=count, grad_accum=grad_accum, grad_denom=grad_denom,
             step=state.step + 1, overflow_acc=overflow_acc,
         )
         return new_state, metrics, color
@@ -333,12 +381,34 @@ class Trainer:
     device, seeded with ``config.seed`` (``densify_noise``)."""
 
     def __init__(self, config: TrainConfig, data: TrainData,
-                 point_cloud: PointCloud, device="cuda"):
+                 point_cloud: PointCloud, device="cuda", mesh=None,
+                 batched_views: Optional[bool] = None):
+        """``mesh`` (``parallel.sharding.Mesh``): train this rank's part of the
+        data- and tile-parallel step, ``mesh.shape["data"]`` views a step.
+        Without one, the Trainer builds the mesh from ``config.parallel``
+        when that asks for more than one rank or a process group of several
+        ranks exists (all of them, with the default 1 x 1).
+
+        ``batched_views``: each rank keeps only its data shard's views, on
+        the host, and moves its view of a step to the device
+        (``parallel/multihost.py``); the same training as the replicated
+        view store.  Default: on when the group spans several hosts."""
         par = config.parallel
-        if par.data_parallel != 1 or par.tile_parallel != 1:
+        if config.densify.prune_near_cameras > 0 and multihost.host_count() > 1:
+            # Per-host camera subsets would give each host another prune
+            # mask and break the replicated state.
             raise NotImplementedError(
-                "data- and tile-parallel training is not ported yet: see "
-                "ROADMAP.md queue A.6")
+                "prune_near_cameras needs the full camera set on every host; it is "
+                "not supported under multi-host training")
+        if mesh is None:
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            if par.data_parallel != 1 or par.tile_parallel != 1 or world > 1:
+                dp = par.data_parallel
+                if world > 1 and dp == 1 and par.tile_parallel == 1:
+                    # The default config under a group spans every rank.
+                    dp = 0
+                mesh = sharding.make_mesh(dp, par.tile_parallel)
+        self.mesh = mesh
         self.cfg = config
         self.data = data
         self.device = resolve_device(device)
@@ -364,7 +434,19 @@ class Trainer:
             step=torch.zeros((), dtype=torch.int32, device=dev),
             overflow_acc=torch.zeros((2,), dtype=torch.float32, device=dev),
         )
-        self.views = stack_views(data, dev)
+        self.batched_views = False
+        if mesh is not None:
+            self.data_parallel = mesh.shape["data"]
+            self.batched_views = (multihost.host_count() > 1 if batched_views is None
+                                  else bool(batched_views))
+            sharding.replicate_state(self.state, mesh)
+            if self.batched_views:
+                self._build_local_store()
+                self.views = None
+            else:
+                self.views = stack_views(data, dev)
+        else:
+            self.views = stack_views(data, dev)
         self.out_dir = Path(config.output_dir)
         self.noise_gen = torch.Generator(device=dev).manual_seed(config.seed)
         cam_centers = None
@@ -397,10 +479,50 @@ class Trainer:
 
     def _build_train_step(self):
         self._touch_heartbeat()
-        self.train_step = make_train_step(
-            self.cfg, self.data.width, self.data.height,
-            self.cfg.model.sh_degree, self.cfg.iterations,
-        )
+        cfg, data = self.cfg, self.data
+        if self.mesh is not None:
+            self.train_step = sharding.make_dp_train_step(
+                cfg, data.width, data.height, cfg.model.sh_degree, cfg.iterations,
+                self.mesh, batched_views=self.batched_views)
+        else:
+            self.train_step = make_train_step(
+                cfg, data.width, data.height, cfg.model.sh_degree, cfg.iterations)
+
+    def _build_local_store(self) -> None:
+        """Batched views: each data shard samples from a contiguous block of
+        the views (wrap-padded, so every shard samples uniformly), and this
+        rank stacks on the host only its own shard's views."""
+        ndata, nv = self.data_parallel, self.data.num_views
+        per = -(-nv // ndata)
+        self.shard_views = [(np.arange(s * per, (s + 1) * per) % nv).astype(np.int64)
+                            for s in range(ndata)]
+        self.local_shards, _ = multihost.local_data_shards(self.mesh)
+        local_ids = np.unique(np.concatenate([self.shard_views[s] for s in self.local_shards]))
+        self.local_ids = local_ids
+        self.local_store = stack_views_host(self.data, local_ids)
+
+    def _batched_step(self):
+        """One batched-views step: every rank draws the whole per-shard
+        vector of view ids from the same stream and moves only its own
+        shard's view to the device.  Returns (chosen, metrics, image)."""
+        chosen = np.asarray([
+            self.shard_views[s][int(self.rng.integers(0, len(self.shard_views[s])))]
+            for s in range(self.data_parallel)], np.int64)
+        local_batch = multihost.select_local_batch(self.local_store, self.local_ids,
+                                                   chosen[self.local_shards])
+        batch = multihost.make_global_view_batch(local_batch, self.mesh, self.device)
+        self.state, metrics, image = self.train_step(self.state, batch)
+        return chosen, metrics, image
+
+    @property
+    def is_writer(self) -> bool:
+        """Only rank 0 writes previews, snapshots, checkpoints, the heartbeat
+        and curves."""
+        return not dist.is_initialized() or dist.get_rank() == 0
+
+    def _check_replicated(self, what: str) -> None:
+        if self.mesh is not None:
+            sharding.assert_replicated(self.state, self.mesh, what)
 
     def set_max_pairs(self, max_pairs: int) -> None:
         """Set the pair budget (for example from a probe of the views) and
@@ -501,9 +623,19 @@ class Trainer:
         last_log, last_step = time.time(), start
         final = {}
         for it in range(start + 1, iterations + 1):
-            view_idx = int(self.rng.integers(0, self.data.num_views))
-            self.state, metrics, image = self.train_step(self.state, self.views, view_idx)
-            if it % cfg.preview_interval == 0 and cfg.output_dir:
+            if self.mesh is not None and self.batched_views:
+                chosen, metrics, image = self._batched_step()
+                view_idx = int(chosen[0])
+            elif self.mesh is not None:
+                idxs = self.rng.integers(0, self.data.num_views, size=self.data_parallel)
+                view_idx = int(idxs[0])
+                self.state, metrics, image = self.train_step(
+                    self.state, self.views, sharding.shard_view_idx(idxs, self.mesh))
+            else:
+                view_idx = int(self.rng.integers(0, self.data.num_views))
+                self.state, metrics, image = self.train_step(self.state, self.views, view_idx)
+            # Rank 0 is data shard 0: its image is view_idx's.
+            if it % cfg.preview_interval == 0 and cfg.output_dir and self.is_writer:
                 self.save_preview(it, image, view_idx)
             if it % cfg.snapshot_interval == 0 and cfg.output_dir:
                 self.save_snapshot(it)
@@ -514,11 +646,13 @@ class Trainer:
                 step_fn = self.densify_step if in_densify else self.prune_step
                 noise = self.densify_noise(self.state.params.capacity)
                 self.state, _ = step_fn(self.state, noise)
+                self._check_replicated(f"after the densify round at step {it}")
                 self.maybe_grow()
 
             if d.opacity_reset_interval > 0 and it % d.opacity_reset_interval == 0 \
                     and it <= d.until_iter:
                 self.state = self.opacity_reset_step(self.state)
+                self._check_replicated(f"after the opacity reset at step {it}")
 
             if it % cfg.log_interval == 0 or it == iterations:
                 m = {k: float(v) for k, v in metrics.items()}
@@ -551,13 +685,14 @@ class Trainer:
             new_cap = min(cap * 2, _next_pow2(self.cfg.model.max_gaussians))
             self._touch_heartbeat()
             self.state = grow_capacity(self.state, new_cap)
+            self._check_replicated(f"after the capacity growth to {new_cap}")
 
     def _touch_heartbeat(self) -> None:
         """Refresh the supervisor heartbeat (``metrics.jsonl``'s mtime in the
         output directory) before a long pause, so that a supervisor reading
         a stale heartbeat as a stall does not kill and restart the run into
         the same pause."""
-        if self.cfg.output_dir:
+        if self.cfg.output_dir and self.is_writer:
             try:
                 (self.out_dir / "metrics.jsonl").touch()
             except OSError:
@@ -567,7 +702,7 @@ class Trainer:
         """Loss (left axis) and PSNR (right axis) against iteration over the
         logged steps, as an 800x400 RGB PNG, ``loss_curve.png`` in the output
         directory."""
-        if not self.history:
+        if not self.history or not self.is_writer:
             return
         img = two_axis_chart([m["iteration"] for m in self.history],
                              [m["loss"] for m in self.history],
@@ -586,6 +721,8 @@ class Trainer:
 
     def save_snapshot(self, iteration: int) -> None:
         """The live rows' raw parameters as a Gaussian PLY."""
+        if not self.is_writer:
+            return
         n = int(self.state.num_active)
         p = self.state.params.to_numpy()
         ply.write_gaussian_ply(
@@ -597,6 +734,8 @@ class Trainer:
     def save_checkpoint(self, iteration: int) -> None:
         from . import checkpoint
 
+        if not self.is_writer:
+            return
         checkpoint.save(self.out_dir / f"ckpt_{iteration}.npz", self.state, self.cfg,
                         host_rng=self.rng, generator=self.noise_gen)
 
@@ -625,3 +764,4 @@ class Trainer:
             self.cfg = dataclasses.replace(self.cfg, raster=dataclasses.replace(
                 self.cfg.raster, max_pairs=saved.raster.max_pairs))
             self._build_train_step()
+        self._check_replicated(f"after restoring {path}")

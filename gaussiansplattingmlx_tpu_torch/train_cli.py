@@ -9,20 +9,37 @@ Dataset formats: colmap (sparse/0/*.bin + images/), blender (info.json),
 nerfstudio (transforms.json).  Metrics stream to stdout and metrics.csv;
 config.json, PLY snapshots, npz checkpoints, previews and loss_curve.png
 land in --output.  ``main(argv)`` returns a ``TrainResult``.
+
+Several ranks on one host (``--data-parallel D --tile-parallel T``, D x T
+ranks): ``main`` starts them itself, one process a rank, each on a card of
+its own with ``--device cuda``, or all on one named device
+(``--device cuda:0``, ``--device cpu``) over gloo.  Across hosts, torchrun
+starts the ranks and each joins its group:
+
+    torchrun --nnodes 2 --nproc-per-node 8 ... -m \
+        gaussiansplattingmlx_tpu_torch.train_cli --multihost ...
+
+Only rank 0 prints the log lines and writes files.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import dataclasses
 import json
+import os
 import sys
 from pathlib import Path
 from typing import Optional
 
-from .config import TrainConfig
+import torch
+import torch.distributed as dist
+
+from .config import ParallelConfig, TrainConfig
 from .data import blender, colmap, nerfstudio
+from .parallel import launch, multihost, sharding
 from .train.trainer import Trainer
 from .utils.camera import spatial_lr_scale_auto
 
@@ -62,10 +79,12 @@ def parse_args(argv=None):
     p.add_argument("--no-center", action="store_true",
                    help="skip point-cloud centering")
     p.add_argument("--data-parallel", type=int, default=None,
-                   help="views per step across devices (not ported: 1 only)")
+                   help="mesh 'data' axis size: one camera view per rank per "
+                        "step, gradients averaged over the ranks (0 = all "
+                        "remaining ranks: the group's, or one a card)")
     p.add_argument("--tile-parallel", type=int, default=None,
-                   help="pixel-row bands per view across devices (not "
-                        "ported: 1 only)")
+                   help="mesh 'tile' axis size: split each camera's pixel "
+                        "rows into this many bands (exact seam handling)")
     p.add_argument("--opacity-reset-interval", type=int, default=None,
                    help="INRIA-style periodic opacity reset every N iters "
                         "(0 = off, the reference behaviour); recommended "
@@ -78,10 +97,16 @@ def parse_args(argv=None):
                         "1.1 x camera bounding-sphere radius (INRIA); "
                         "default 1.0 = reference behaviour")
     p.add_argument("--multihost", action="store_true",
-                   help="train across hosts (not ported)")
+                   help="join the process group that torchrun started "
+                        "(reads RANK / WORLD_SIZE / LOCAL_RANK / "
+                        "LOCAL_WORLD_SIZE / MASTER_ADDR / MASTER_PORT); each "
+                        "host keeps a host-local view store and only "
+                        "gradients cross hosts")
     p.add_argument("--device", default="cuda",
-                   help="torch device to train on (default cuda; a CUDA "
-                        "device that is missing is an error)")
+                   help="torch device to train on (default cuda: each rank "
+                        "on its own card, cuda:LOCAL_RANK; a named device, "
+                        "such as cuda:0, is shared by all ranks over gloo; a "
+                        "CUDA device that is missing is an error)")
     return p.parse_args(argv)
 
 
@@ -89,7 +114,12 @@ def parse_args(argv=None):
 class TrainResult:
     output_dir: Path
     final: dict  # the last logged metrics, as printed after "final:"
-    trainer: Trainer
+    # The Trainer; None when the ranks ran in processes of their own.
+    trainer: Optional[Trainer]
+    history: list  # every logged metrics dict
+    # Each rank's report when main started the ranks (launch.spawn): launch
+    # counts, state digest, seconds, peak memory, collective time.
+    ranks: list = dataclasses.field(default_factory=list)
 
 
 def check_ported(args) -> None:
@@ -99,14 +129,6 @@ def check_ported(args) -> None:
         raise NotImplementedError(
             "--fetch-demo downloads over the network and is not ported "
             "(ROADMAP.md queue A.5)")
-    if args.multihost:
-        raise NotImplementedError("--multihost is not ported yet (ROADMAP.md queue A.6)")
-    for flag, value in (("--data-parallel", args.data_parallel),
-                        ("--tile-parallel", args.tile_parallel)):
-        if value is not None and value != 1:
-            raise NotImplementedError(
-                f"{flag} {value}: data- and tile-parallel training is not ported "
-                f"yet (ROADMAP.md queue A.6)")
 
 
 def build_config(args) -> TrainConfig:
@@ -150,49 +172,108 @@ def build_config(args) -> TrainConfig:
     )
 
 
+def ranks_to_start(par: ParallelConfig, device) -> int:
+    """How many ranks a run of ``par`` needs when no process group exists:
+    data x tile, where ``data_parallel=0`` spans every card of a bare
+    ``--device cuda``."""
+    data = par.data_parallel
+    if data <= 0:
+        if launch.shares_device(device):
+            raise ValueError(f"--data-parallel {data} spans every card of --device cuda; "
+                             f"with --device {device} give the number of ranks")
+        data = max(torch.cuda.device_count() // par.tile_parallel, 1)
+    return data * par.tile_parallel
+
+
 def main(argv=None) -> TrainResult:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
     check_ported(args)
     cfg = build_config(args)
+    if args.multihost or "WORLD_SIZE" in os.environ:
+        # Under torchrun: join its group (a no-op without its variables, or
+        # inside ranks this function started).
+        multihost.initialize(launch.default_backend(args.device),
+                             launch.rank_device(args.device))
+    if not dist.is_initialized():
+        world = ranks_to_start(cfg.parallel, args.device)
+        if world > 1:
+            launch.check_world(world, args.device)
+            if launch.shares_device(args.device):
+                print(f"{world} ranks share device {args.device} (process group over gloo)",
+                      flush=True)
+            result, reports = launch.spawn(_rank_main, world, args.device, args=(argv,))
+            return dataclasses.replace(result, ranks=reports)
+    return train(args, cfg)
 
-    print(f"loading {args.dataset} dataset from {args.root} ...", flush=True)
+
+def _rank_main(argv):
+    """One rank of a run that ``main`` started: its TrainResult without the
+    Trainer, and its report (state digest, steps, view store, collective
+    time)."""
+    res = main(argv)
+    trainer = res.trainer
+    mesh = trainer.mesh
+    report = {"digest": sharding.state_digest(trainer.state).tolist(),
+              "steps": int(trainer.state.step), "batched_views": trainer.batched_views,
+              "collective_seconds": mesh.collective_seconds,
+              "collective_calls": mesh.collective_calls}
+    return dataclasses.replace(res, trainer=None), report
+
+
+def train(args, cfg: TrainConfig) -> TrainResult:
+    """The run of this process (every rank's, under a process group)."""
+    ranked = dist.is_initialized()
+    writer = not ranked or dist.get_rank() == 0
+    say = print if writer else (lambda *a, **k: None)
+    say(f"loading {args.dataset} dataset from {args.root} ...", flush=True)
     data, pcd = LOADERS[args.dataset](
         args.root, resize_factor=cfg.resize_factor, white_background=cfg.white_background)
     if not args.no_center:
         pcd, centroid = pcd.centering()
         data = data.shift_cameras(centroid)
-        print(f"centered point cloud (centroid {centroid.round(3).tolist()})")
+        say(f"centered point cloud (centroid {centroid.round(3).tolist()})")
 
     if args.spatial_lr_scale is not None:
         if args.spatial_lr_scale == "auto":
             scale = spatial_lr_scale_auto(data.cameras)
-            print(f"spatial_lr_scale auto: {scale:.3f}", flush=True)
+            say(f"spatial_lr_scale auto: {scale:.3f}", flush=True)
         else:
             scale = float(args.spatial_lr_scale)
         cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim,
                                                                   spatial_lr_scale=scale))
 
-    print(f"{data.num_views} views {data.width}x{data.height}, "
-          f"{pcd.size} init points -> sampling {cfg.init_points}", flush=True)
+    say(f"{data.num_views} views {data.width}x{data.height}, "
+        f"{pcd.size} init points -> sampling {cfg.init_points}", flush=True)
 
     out_dir = Path(args.output)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "config.json").write_text(cfg.to_json())
+    if writer:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "config.json").write_text(cfg.to_json())
 
-    trainer = Trainer(cfg, data, pcd, device=args.device)
+    device = launch.rank_device(args.device) if ranked else args.device
+    trainer = Trainer(cfg, data, pcd, device=device)
+    if trainer.mesh is not None:
+        say(f"mesh {trainer.mesh.shape} over {len(trainer.mesh.ranks)} ranks, views "
+            f"{'batched' if trainer.batched_views else 'replicated'}", flush=True)
     if args.resume:
         trainer.restore_checkpoint(args.resume)
-        print(f"resumed from {args.resume} at step {int(trainer.state.step)}")
+        say(f"resumed from {args.resume} at step {int(trainer.state.step)}")
 
-    writer: Optional[csv.DictWriter] = None
-    with open(out_dir / "metrics.csv", "a", newline="") as csv_file:
+    csv_ctx = (open(out_dir / "metrics.csv", "a", newline="") if writer
+               else contextlib.nullcontext())
+    with csv_ctx as csv_file:
+        writer_csv: Optional[csv.DictWriter] = None
+
         def on_metrics(m):
-            nonlocal writer
-            if writer is None:
-                writer = csv.DictWriter(csv_file, fieldnames=sorted(m.keys()))
+            nonlocal writer_csv
+            if not writer:
+                return
+            if writer_csv is None:
+                writer_csv = csv.DictWriter(csv_file, fieldnames=sorted(m.keys()))
                 if csv_file.tell() == 0:
-                    writer.writeheader()
-            writer.writerow(m)
+                    writer_csv.writeheader()
+            writer_csv.writerow(m)
             csv_file.flush()
             print(f"iter {m['iteration']:6d}  loss {m['loss']:.5f}  "
                   f"psnr {m['psnr']:.2f}  n {m['num_active']}  "
@@ -202,8 +283,9 @@ def main(argv=None) -> TrainResult:
     trainer.save_loss_curve()
     trainer.save_snapshot(int(trainer.state.step))
     trainer.save_checkpoint(int(trainer.state.step))
-    print("final:", json.dumps(final))
-    return TrainResult(output_dir=out_dir, final=final, trainer=trainer)
+    say("final:", json.dumps(final))
+    return TrainResult(output_dir=out_dir, final=final, trainer=trainer,
+                       history=list(trainer.history))
 
 
 if __name__ == "__main__":

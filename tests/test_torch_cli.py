@@ -121,15 +121,27 @@ def test_eval_cli_matches_jax(runs, tmp_path, capsys):
     assert read_png(tmp_path / "eval_000.png").shape == (24, 32, 3)
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--fetch-demo", "lego"], "A.5"),
-    (["--multihost"], "A.6"),
-    (["--data-parallel", "2"], "A.6"),
-    (["--tile-parallel", "4"], "A.6"),
-    (["--backend", "reference"], "A.8"),
+@pytest.mark.parametrize("extra,error,match", [
+    pytest.param(["--fetch-demo", "lego"], NotImplementedError, "A.5", id="extra0-A.5"),
+    # The parallel flags (ROADMAP.md A.6) are ported; their error paths:
+    # torchrun's variables in part, and more ranks than the one card
+    # visible with a bare --device cuda.
+    pytest.param(["--multihost"], ValueError, "RANK.*torchrun", id="extra1-A.6"),
+    pytest.param(["--data-parallel", "2", "--device", "cuda"], RuntimeError,
+                 "2 ranks need 2 cards", id="extra2-A.6"),
+    pytest.param(["--tile-parallel", "4", "--device", "cuda"], RuntimeError,
+                 "4 ranks need 4 cards", id="extra3-A.6"),
+    pytest.param(["--backend", "reference"], NotImplementedError, "A.8", id="extra4-A.8"),
 ])
-def test_train_cli_unported_flags_raise(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_train_cli_unported_flags_raise(tmp_path, monkeypatch, extra, error, match):
+    """Flags whose code the port lacks raise naming their ROADMAP.md item;
+    the parallel flags raise on what they cannot run.  Nothing is written."""
+    if "--multihost" in extra:
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(error, match=match):
         train_cli.main(["--dataset", "colmap", "--root", str(tmp_path / "missing"),
                         "--output", str(tmp_path / "out"), "--device", "cpu", *extra])
     assert not (tmp_path / "out").exists()

@@ -72,17 +72,30 @@ def test_render_inference_matches_jax(seed, sh_degree, white):
 
 
 def test_render_training_path_not_ported():
-    """The training render itself is ported (tests/test_torch_train_*.py);
-    its pixel-band form, used only by the band-sharded step, is not."""
-    params, c2w = scene_numpy(n=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A.6"):
-        gp = params_from_numpy(params, "cpu")
+    """The pixel-band form of the training render (ROADMAP.md A.6, used by
+    the band-split step) is ported: the two halves of a view, each rendered
+    with its band window, are the full render's rows, and its pairs split
+    between them (tests/test_torch_parallel.py holds bands against JAX)."""
+    params, c2w = scene_numpy(n=40)
+    gp = params_from_numpy(params, "cpu")
+    with torch.no_grad():
         means, shs, opacity, scales, rots = activations(gp)
-        t = Camera.from_c2w(W, H, FOCAL, FOCAL, c2w).tensors()
-        render(means, shs, opacity, scales, rots, to_torch(t["view"]),
-               to_torch(t["proj"]), to_torch(t["camera_center"]), t["fov_x"],
-               t["fov_y"], t["focal_x"], t["focal_y"], W, H // 2, 0,
-               pixel_y_offset=H // 2, full_image_height=H)
+    t = Camera.from_c2w(W, H, FOCAL, FOCAL, c2w).tensors()
+    cam = (to_torch(t["view"]), to_torch(t["proj"]), to_torch(t["camera_center"]),
+           t["fov_x"], t["fov_y"], t["focal_x"], t["focal_y"])
+    cfg = config.RasterizerConfig(tile_h=TILE // 2, tile_w=TILE // 2, max_pairs=MAX_PAIRS,
+                                  chunk_size=CHUNK)
+    with torch.no_grad():
+        full, full_aux = render(means, shs, opacity, scales, rots, *cam, W, H, 0,
+                                raster_cfg=cfg)
+        bands = [render(means, shs, opacity, scales, rots, *cam, W, H // 2, 0,
+                        raster_cfg=cfg, pixel_y_offset=b * (H // 2), full_image_height=H)
+                 for b in range(2)]
+    for key in ("color", "alpha"):
+        np.testing.assert_allclose(
+            np.concatenate([outputs_numpy(out)[key] for out, _ in bands]),
+            outputs_numpy(full)[key], rtol=1e-4, atol=1e-5, err_msg=key)
+    assert sum(int(aux.num_pairs) for _, aux in bands) == int(full_aux.num_pairs) > 0
 
 
 def test_render_cli_cpu_writes_pngs(tmp_path):

@@ -249,13 +249,18 @@ def test_trainer_budget_grows_and_shrinks_per_layout(synthetic, capsys, layout):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(parallel=config.ParallelConfig(data_parallel=2)), "A.6"),
-    (dict(parallel=config.ParallelConfig(tile_parallel=2)), "A.6"),
+    pytest.param(dict(parallel=config.ParallelConfig(data_parallel=2)),
+                 "2 x 1 .* needs 2 ranks", id="change0-A.6"),
+    pytest.param(dict(parallel=config.ParallelConfig(tile_parallel=2)),
+                 "1 x 2 .* needs 2 ranks", id="change1-A.6"),
 ])
 def test_trainer_raises_on_unported_parts(synthetic, change, match):
-    """What the port has not ported raises, naming its ROADMAP.md item."""
+    """Data- and tile-parallel training (ROADMAP.md A.6) runs one rank a
+    mesh position: a Trainer asked for two ranks in a single process
+    raises, naming how to start them (tests/test_torch_parallel.py trains
+    them)."""
     pts, cols, cams, images = synthetic
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         tr = trainer.Trainer(_cfg(iterations=4, **change), TrainData(cams, images),
                              PointCloud(pts, cols * 255.0), device="cpu")
         tr.run()
