@@ -12,7 +12,9 @@ and checks each against its plain PyTorch version at the shapes of its path:
   100,000 Gaussians at SH degree 3, rendered at 800x800 from 4 orbit views
   plus a 16-frame throughput loop;
 * K3 backward compositing and K4 per-Gaussian segment sum on the training
-  buffers of the bench camera (the cotangent of the real L1 + SSIM loss),
+  buffers of the bench camera (the cotangent of the real L1 + SSIM loss;
+  K4 with the buffer's segment profile and its feed, ``sort_by_gid``,
+  timed beside it, wherever K4 is checked),
   K3 also at tile 32 on a small scene; K5 merge ranks (timed at the serving
   budget), K6 relayout and K7 aligned backward on the same camera's
   split-layout ranks and aligned buffers; then the training path through
@@ -163,6 +165,13 @@ FRESH_RTOL, FRESH_ATOL = 1e-6, 1e-7
 # named in the kernels line.
 BWD_DESIGN = ("replay: 2 pixels a thread at tile 16 (128 threads), 4 at tile 32 (256), "
               "transposed warp reduction over groups of 3 records")
+# The design of the per-Gaussian segment sum K4 (segsum.cu), named in the
+# kernels line.
+SEGSUM_DESIGN = ("merge path over columns and segment ends: stretches of 224 steps, a warp each "
+                 "(7 a lane, columns held in registers), persistent grid of 1,056 two-warp "
+                 "blocks, a 256-entry sample of the ends for the search, a warp scan by segment; "
+                 "a programmatic-dependent fix-up kernel adds the carries of segments that "
+                 "cross stretches")
 # The design of forward compositing K1 (rasterize_fwd.cu), named in the
 # kernels line.
 FWD_DESIGN = ("one pixel a thread in blocks of at most 128 pixels (whole rows: 2 blocks a tile at "
@@ -632,24 +641,50 @@ def check_raster_bwd(args, st, target, device):
     return bench, gid, got
 
 
+def segment_profile(offsets) -> dict:
+    """The segment lengths K4 sums: rows, used pairs, empty segments, the
+    longest segment and the 99th percentile of the non-empty ones."""
+    lengths = (offsets[1:] - offsets[:-1]).long()
+    used = lengths[lengths > 0].double()
+    return {"rows": int(lengths.numel()), "pairs": int(offsets[-1]),
+            "empty": int((lengths == 0).sum()), "longest": int(lengths.max()),
+            "p99": float(torch.quantile(used, 0.99)) if used.numel() else 0.0}
+
+
 def check_segsum(gid, rows, num_rec, what):
     """K4 against its plain version on a training buffer's gid and K3's rows;
-    two launches bit-identical; torch.segment_reduce as the yardstick.
+    two launches bit-identical, column 4 = column 3, columns 11-15 zero;
+    torch.segment_reduce as the yardstick.  Also prints the segment profile
+    and times K4's feed, ``sort_by_gid`` (the gid sort and the live rows'
+    gather), and that gather (two index ops) against one two-index gather.
     Returns the kernels line's entry, timed there."""
     from gaussiansplattingmlx_tpu_torch.ops import segsum_cuda
 
     rows_s, offsets = segsum_cuda.sort_by_gid(rows, gid, num_rec)
+    profile = segment_profile(offsets)
+    print(f"segsum segments ({what}): {json.dumps(profile)}", flush=True)
     got = segsum_cuda.segment_sum_sorted(rows_s, offsets)
     again = segsum_cuda.segment_sum_sorted(rows_s, offsets)
     want = segsum_cuda.segment_sum_sorted_plain(rows_s, offsets)
     torch.cuda.synchronize()
     require(torch.equal(got.view(torch.int32), again.view(torch.int32)),
             "segsum: two launches differ")
+    require(torch.equal(got[:, 4], got[:, 3]) and bool((got[:, 11:] == 0).all()),
+            "segsum: column 4 differs from column 3 or columns 11-15 are not zero")
     torch.testing.assert_close(got, want, rtol=SEGSUM_RTOL,
                                atol=SEGSUM_ATOL * float(want.abs().max()))
     err = float((got - want).abs().max())
     times = kernel_ms(lambda: segsum_cuda.segment_sum_sorted(rows_s, offsets))
     plain_ms = cuda_ms(lambda: segsum_cuda.segment_sum_sorted_plain(rows_s, offsets))
+    # K4's feed: the whole sort_by_gid, and its gather of the live rows
+    # through the permutation (two gathers: the live rows, then their
+    # columns) against one two-index gather, which must give the same bits.
+    sort_ms = device_ms(lambda: segsum_cuda.sort_by_gid(rows, gid, num_rec))
+    _, perm = torch.sort(torch.clamp(gid, max=num_rec), stable=True)
+    live = segsum_cuda._live_index(rows.device)
+    require(bit_equal(rows[live[:, None], perm], rows_s), "sort_by_gid: gathers differ")
+    gather_ms = device_ms(lambda: rows[live][:, perm])
+    gather_one_ms = device_ms(lambda: rows[live[:, None], perm])
     used = int(offsets[-1])
     lengths = (offsets[1:] - offsets[:-1]).long()
     data = rows_s[:, :used].T.contiguous()  # the library call's layout
@@ -667,9 +702,13 @@ def check_segsum(gid, rows, num_rec, what):
           f"gaussians ({what}); bit-identical repeats; kernel {times['ms']:.4f} ms (a call "
           f"{times['call_ms']:.4f} ms), plain {plain_ms:.4f} ms, torch.segment_reduce "
           f"{library_ms:.4f} ms (a call {library_call_ms:.4f} ms), bound "
-          f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})", flush=True)
+          f"{lim['bound_ms']:.4f} ms ({lim['bound_by']}); sort_by_gid {sort_ms:.4f} ms, "
+          f"its row gather {gather_ms:.4f} ms (one two-index gather {gather_one_ms:.4f} ms) over "
+          f"{rows.shape[1]} columns", flush=True)
     return {"max_abs_err": err, **times, "plain_ms": plain_ms, **lim,
-            "library_ms": library_ms, "library_call_ms": library_call_ms}
+            "library_ms": library_ms, "library_call_ms": library_call_ms,
+            "sort_ms": sort_ms, "gather_ms": gather_ms, "gather_one_ms": gather_one_ms,
+            "segments": profile}
 
 
 def bit_equal(a, b) -> bool:
@@ -2206,19 +2245,22 @@ def main() -> int:
                   **{f"serving_{k}": fwd_serving[k] for k in (*timed, "pixel_records")},
                   "serving_launches": serve_launches["raster_fwd"],
                   "launches_by_path": fwd_paths, "design": FWD_DESIGN}
+    # K4 also carries its feed's times and its segment profile at each shape.
+    segsum_keys = (*timed, "library_ms", "sort_ms", "gather_ms", "gather_one_ms", "segments")
     segsum = {**train_entries["segsum"],
-              **{f"bench_tile16_{k}": segsum_bench[k] for k in (*timed, "library_ms")}}
+              **{f"bench_tile16_{k}": segsum_bench[k] for k in segsum_keys},
+              "design": SEGSUM_DESIGN}
     # K1-K4 on the densified run's grown buffers (262,144 rows).
     merge_gather.update({f"grown_{k}": grown["merge_gather"][k] for k in timed})
     raster_fwd.update({f"grown_{k}": grown["raster_fwd"][k] for k in (*timed, "pixel_records")})
     raster_bwd.update({f"grown_{k}": grown["raster_bwd"][k] for k in timed})
-    segsum.update({f"grown_{k}": grown["segsum"][k] for k in (*timed, "library_ms")})
+    segsum.update({f"grown_{k}": grown["segsum"][k] for k in segsum_keys})
     # K1-K4 on the full-width CLI run's buffers (SH4, tile 16, densified),
     # and their launches in the CLI runs.
     merge_gather.update({f"cli_{k}": cli["merge_gather"][k] for k in timed})
     raster_fwd.update({f"cli_{k}": cli["raster_fwd"][k] for k in (*timed, "pixel_records")})
     raster_bwd.update({f"cli_{k}": cli["raster_bwd"][k] for k in timed})
-    segsum.update({f"cli_{k}": cli["segsum"][k] for k in (*timed, "library_ms")})
+    segsum.update({f"cli_{k}": cli["segsum"][k] for k in segsum_keys})
     for name, entry in (("merge_gather", merge_gather), ("raster_fwd", raster_fwd),
                         ("raster_bwd", raster_bwd), ("segsum", segsum)):
         entry["launches_densified"] = dense_launches[name]
@@ -2226,7 +2268,8 @@ def main() -> int:
         entry["launches_cli"] = {run: launched[name] for run, launched in cli_launches.items()}
         # K1-K4 on the T=2 run's 400-row band buffer, and their launches
         # per rank in each D x T run (ranks sharing one card).
-        entry.update({f"band400_{k}": par["band"][name][k] for k in timed})
+        entry.update({f"band400_{k}": par["band"][name][k]
+                      for k in (segsum_keys if name == "segsum" else timed)})
         entry["launches_parallel"] = {
             **{run: [r[name] for r in launched] for run, launched in par["runs"].items()},
             **{run: [r[name] for r in e["launches"]] for run, e in cli_par.items()}}

@@ -15,12 +15,16 @@ order; ``segment_sum_sorted`` then sums every segment.  Its output is
 
 ``segment_sum_sorted`` dispatches on the device of its inputs: CPU tensors
 take ``segment_sum_sorted_plain`` (an ``index_add_``); CUDA tensors launch
-``csrc/segsum.cu`` or raise.
+``csrc/segsum.cu`` or raise.  The kernel cuts the columns and the segment
+ends into equal stretches (a merge path), so a Gaussian that covers many
+tiles is summed by many warps; the wrapper allocates the stretches' carry
+records, which a second kernel behind the same entry point adds up.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -33,8 +37,24 @@ LIVE_ROWS = (0, 1, 2, 3, 5, 6, 7, 8, 9, 10)
 KERNEL = _kernels.Kernel(
     "gsplat_segsum",
     [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32,
-     ctypes.c_void_p, ctypes.c_void_p],
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
 )
+
+
+@functools.lru_cache(maxsize=None)
+def _carries_fn():
+    """``gsplat_segsum_carries(cols, num_rec)``: the kernel's stretches over
+    ``cols`` columns and ``num_rec`` segments, its carry records."""
+    fn = _kernels.LIBRARY.cdll().gsplat_segsum_carries
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int32]
+    fn.restype = ctypes.c_int64
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _live_index(device: torch.device) -> torch.Tensor:
+    """``LIVE_ROWS`` as an int64 tensor on ``device``, made once."""
+    return torch.tensor(LIVE_ROWS, dtype=torch.int64, device=device)
 
 
 def _check(rows_s: torch.Tensor, offsets: torch.Tensor) -> None:
@@ -81,12 +101,21 @@ def segment_sum_sorted(rows_s: torch.Tensor, offsets: torch.Tensor) -> torch.Ten
         raise ValueError(f"segment_sum_sorted: unsupported device {rows_s.device}")
     _check(rows_s, offsets)
     num_rec = offsets.shape[0] - 1
+    cols = rows_s.shape[1]
+    # The merge path's steps are int32 on the card.
+    _kernels.check(cols + num_rec < 2 ** 30, f"{cols} columns and {num_rec} segments: too many")
     out = torch.empty((num_rec, REC_DIM), dtype=torch.float32, device=rows_s.device)
     if num_rec == 0:
         return out
     with torch.cuda.device(rows_s.device):
-        KERNEL.launch(rows_s.data_ptr(), rows_s.shape[1], offsets.data_ptr(),
-                      num_rec, out.data_ptr(), _kernels.stream_of(rows_s))
+        carries = _carries_fn()(cols, num_rec)
+        # A record: the segment open at the stretch's end, its sum there and
+        # the stretch's part of its first segment.
+        carry_seg = torch.empty(carries, dtype=torch.int32, device=rows_s.device)
+        carry_sum = torch.empty((carries, 2 * len(LIVE_ROWS)), dtype=torch.float32,
+                                device=rows_s.device)
+        KERNEL.launch(rows_s.data_ptr(), cols, offsets.data_ptr(), num_rec, out.data_ptr(),
+                      carry_seg.data_ptr(), carry_sum.data_ptr(), _kernels.stream_of(rows_s))
     return out
 
 
@@ -99,7 +128,10 @@ def sort_by_gid(g_cm: torch.Tensor, gid: torch.Tensor, num_rec: int):
                    f"and {gid.dtype} {tuple(gid.shape)}")
     key = torch.clamp(gid, max=num_rec)
     gid_s, perm = torch.sort(key, stable=True)
-    rows_s = g_cm[list(LIVE_ROWS)][:, perm].contiguous()
+    # The live rows, then their columns through the permutation: on the
+    # card two gathers take less time than one two-index gather of the same
+    # bits (chip_smoke.py times both).
+    rows_s = g_cm[_live_index(g_cm.device)][:, perm]
     bounds = torch.arange(num_rec + 1, dtype=torch.int32, device=gid.device)
     offsets = torch.searchsorted(gid_s, bounds, side="left").to(torch.int32)
     return rows_s, offsets

@@ -291,14 +291,60 @@ def test_raster_bwd_kernel_matches_plain(tile):
     assert bool((got[11:] == 0).all()) and torch.equal(got[3], got[4])
 
 
-def test_segsum_kernel_matches_plain():
+def _segsum_span(segsum_cuda) -> int:
+    """Path steps (columns and segment ends) a stretch of K4 takes:
+    carries(c, 0) = ceil(c / span) first exceeds 1 at c = span + 1."""
+    carries = segsum_cuda._carries_fn()
+    return next(c for c in range(1, 1 << 16) if carries(c + 1, 0) > 1)
+
+
+def _segsum_case(case, segsum_cuda):
+    """(rows_s [10, P], offsets [num_rec + 1]) on the card for one of K4's
+    cases.  "staged" draws its rows N(0, 1); the others draw integers in
+    [-8, 8], whose partial sums are all exact in float32, so that any order
+    of the adds gives the same bits."""
+    gen = torch.Generator().manual_seed(3)
+
+    def integers(shape):
+        return torch.randint(-8, 9, shape, generator=gen).float().cuda()
+
+    def hand_built(lengths, extra=7):
+        offsets = torch.zeros(len(lengths) + 1, dtype=torch.int32)
+        offsets[1:] = torch.cumsum(torch.as_tensor(lengths, dtype=torch.int64), 0)
+        return integers((10, int(offsets[-1]) + extra)), offsets.cuda()
+
+    if case == "staged":  # a staged scene's gid
+        _, _, gid, _ = _train_staged(300, 7, 100, 72, 16, 8192, "cuda")
+        rows = torch.randn((16, gid.shape[0]), generator=gen).cuda()
+        return segsum_cuda.sort_by_gid(rows, gid, 300)
+    span = _segsum_span(segsum_cuda)
+    if case == "long":  # one segment across many stretches, short ones around it
+        return hand_built([3, 0, 5] + [20_000] + [1, 0, 2] * 10)
+    if case == "empty_runs":  # runs of empty segments longer than a stretch
+        return hand_built([0] * (3 * span) + [4] + [0] * 1000 + [9, 0, 0, 1] + [0] * span)
+    if case == "no_pairs":  # nothing used: every Gaussian gets exactly zero
+        return hand_built([0] * 5000, extra=4096)
+    if case == "one_gaussian":
+        return hand_built([10_007], extra=0)
+    if case == "block_starts":  # every segment starts on a stretch boundary
+        # (segment g begins at path step offsets[g] + g = g * span)
+        return hand_built([span - 1] * 40 + [2 * span - 1] + [span - 1] * 3)
+    # "mixed": a staged gid with one Gaussian given 20,000 more columns, 513
+    # columns of no Gaussian and 1,000 Gaussians with no pair appended,
+    # through sort_by_gid
+    _, _, gid, _ = _train_staged(300, 7, 100, 72, 16, 8192, "cuda")
+    gid = torch.cat([gid, torch.full((20_000,), 5, dtype=torch.int32, device="cuda"),
+                     torch.full((513,), 1300, dtype=torch.int32, device="cuda")])
+    return segsum_cuda.sort_by_gid(integers((16, gid.shape[0])), gid, 1300)
+
+
+@pytest.mark.parametrize("case", ["staged", "long", "empty_runs", "no_pairs", "one_gaussian",
+                                  "block_starts", "mixed"])
+def test_segsum_kernel_matches_plain(case):
     require_cuda()
     from gaussiansplattingmlx_tpu_torch.ops import segsum_cuda
 
-    _, sp, gid, _ = _train_staged(300, 7, 100, 72, 16, 8192, "cuda")
-    gen = torch.Generator().manual_seed(3)
-    rows = torch.randn((16, gid.shape[0]), generator=gen).cuda()
-    rows_s, offsets = segsum_cuda.sort_by_gid(rows, gid, 300)
+    rows_s, offsets = _segsum_case(case, segsum_cuda)
     before = segsum_cuda.KERNEL.launches
     got = segsum_cuda.segment_sum_sorted(rows_s, offsets)
     again = segsum_cuda.segment_sum_sorted(rows_s, offsets)
@@ -309,7 +355,11 @@ def test_segsum_kernel_matches_plain():
     # Another summation order than index_add_'s: rtol 1e-5, atol 1e-6 of
     # the largest sum for segments that cancel.
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
+    if case != "staged":  # exact partial sums: the same bits
+        assert torch.equal(got, want)
     assert torch.equal(got[:, 4], got[:, 3]) and bool((got[:, 11:] == 0).all())
+    empty = (offsets[1:] == offsets[:-1]).cpu()
+    assert bool((got.cpu()[empty] == 0).all()), "a Gaussian with no pair must get zeros"
 
 
 def test_train_step_card_matches_cpu():

@@ -91,19 +91,30 @@ def test_stage_pairs_train_backward_matches_jax(seed, n, max_pairs):
     np.testing.assert_array_equal(got == 0.0, want == 0.0)
 
 
-@pytest.mark.parametrize("seed", [3, 13])
-def test_segment_sum_plain_matches_jax_segsum(seed):
+@pytest.mark.parametrize("seed,skewed", [(3, False), (13, False), (3, True)],
+                         ids=["3", "13", "skewed"])
+def test_segment_sum_plain_matches_jax_segsum(seed, skewed):
     """K4's plain version against `_segment_reduce_pallas` on the real gid of
-    a staged scene and random rows (rtol 1e-5, see above)."""
+    a staged scene and random rows (rtol 1e-5, see above).  ``skewed``: one
+    Gaussian takes 80% of the used columns, as one that covers most tiles
+    does, and the JAX kernel sweeps chunks of 128 columns, so its segment
+    spans several of them."""
     n = 80
     args = _geometry(seed, n)
     jst, tst = _statics(MAX_PAIRS, n)
     _, gid = staging._stage_train_impl(tst, *(to_torch(a) for a in args))
+    if skewed:
+        g = to_numpy(gid).copy()
+        used = np.flatnonzero(g < n)
+        g[used[: len(used) * 4 // 5]] = 7
+        gid = to_torch(g)
+        counts = np.bincount(g[g < n], minlength=n)
+        assert counts[7] > 2 * 128 and counts[7] > 0.8 * counts.sum() - 1
     total = gid.shape[0]
     rows = np.random.default_rng(seed).normal(size=(16, total)).astype(np.float32)
     rows[4] = rows[3]  # the backward writes d_cs to both rows
-    sst = jax_rp.SegsumStatic(num_rec=n, num_aligned=total, chunk=512, block_b=128,
-                              interpret=True, live_rows=jax_rp.RASTER_LIVE_ROWS)
+    sst = jax_rp.SegsumStatic(num_rec=n, num_aligned=total, chunk=128 if skewed else 512,
+                              block_b=128, interpret=True, live_rows=jax_rp.RASTER_LIVE_ROWS)
     want = np.array(jax_rp._segment_reduce_pallas(sst, jnp.asarray(rows),
                                                     jnp.asarray(to_numpy(gid))))
     want[:, 4] = want[:, 3]
@@ -115,6 +126,29 @@ def test_segment_sum_plain_matches_jax_segsum(seed):
     assert int(offsets[-1]) == int((gid < n).sum())
     np.testing.assert_array_equal(
         to_numpy(segsum_cuda.segment_sum_sorted_plain(rows_s, offsets)), got)
+
+
+@pytest.mark.parametrize("seed", [3, 13])
+def test_sort_by_gid_gathers_like_one_gather(seed):
+    """``sort_by_gid`` takes the live rows through the gid permutation (two
+    gathers: the rows, then the columns); it must give the bits of one
+    two-index gather and of the list-indexed form it had before, the stable
+    sort's offsets, and a contiguous result."""
+    n = 80
+    args = _geometry(seed, n)
+    _, tst = _statics(MAX_PAIRS, n)
+    _, gid = staging._stage_train_impl(tst, *(to_torch(a) for a in args))
+    rows = to_torch(np.random.default_rng(seed).normal(size=(16, gid.shape[0])).astype(np.float32))
+    rows_s, offsets = segsum_cuda.sort_by_gid(rows, gid, n)
+    _, perm = torch.sort(torch.clamp(gid, max=n), stable=True)
+    assert rows_s.is_contiguous() and rows_s.shape == (10, gid.shape[0])
+    live = torch.tensor(segsum_cuda.LIVE_ROWS)
+    assert_bit_equal(to_numpy(rows_s), to_numpy(rows[live[:, None], perm]), "one gather")
+    assert_bit_equal(to_numpy(rows_s), to_numpy(rows[list(segsum_cuda.LIVE_ROWS)][:, perm]),
+                     "list-indexed gathers")
+    g = to_numpy(gid)
+    want = np.searchsorted(np.sort(np.minimum(g, n), kind="stable"), np.arange(n + 1))
+    np.testing.assert_array_equal(to_numpy(offsets), want)
 
 
 def _raster_jax_vjp(records, start, count, width, height, cot):
