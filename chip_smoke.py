@@ -54,6 +54,21 @@ and checks each against its plain PyTorch version at the shapes of its path:
   ray-traced by scripts/make_vendor_scene.py into a temporary directory,
   its 16,381-point surface sample) at the default config, and K2, K1, K3
   and K4 checked and timed on that run's last buffers;
+* the oracle (``backend="reference"``, plain torch on the card): one
+  render and one training step's parameter gradients of a 400-Gaussian
+  100x72 scene against the kernels' path (the JAX image and gradient
+  bars), and ``eval_cli --backend reference`` on the vendored run's
+  step-100 PLY at 64x48 against ``eval_cli`` on the kernels;
+* the scatter reduction (``grad_reduce="scatter"``, no K4): on the sorted
+  run's first-step buffers against ``sort_by_gid`` + K4 (K4's tolerance;
+  two launches compared bit for bit; both timed), then ``Trainer.run``
+  for 20 steps in the sorted layout and 10 in the aligned and split
+  layouts, their losses held to the sorted segsum run's;
+* the profiler (``utils/profiler.py``): ``IntervalProfiler`` with
+  ``sync_on`` over 3 default training steps, and ``trace()`` of one step,
+  whose Chrome trace must name K1-K4's kernels;
+* the native COLMAP parsers (built with the host C++ compiler) against
+  the Python parsers on the vendored scene's ``sparse/``, bit for bit;
 * data- and tile-parallel training (``parallel/``), its ranks started by
   ``parallel/launch.py`` on this one card over gloo (so their times are no
   scaling result): ``render()`` of the bench scene at tile 16 over one
@@ -231,6 +246,27 @@ CLI_PAR_RESUME = 300
 # K1-K4, by C symbol (ranks report their counters by symbol).
 PAR_KERNELS = {"gsplat_merge_gather": "merge_gather", "gsplat_raster_fwd": "raster_fwd",
                "gsplat_raster_bwd": "raster_bwd", "gsplat_segsum": "segsum"}
+
+
+# The scatter reduction (grad_reduce="scatter") in place of K4: the sorted
+# layout trains TRAIN_STEPS steps, the aligned and split layouts
+# SCATTER_LAYOUT_STEPS (two log lines) of the same schedule, each at the
+# sorted run's pair budget, their losses held to the sorted run's.
+SCATTER_LAYOUT_STEPS = 10
+# The oracle (backend="reference"), O(pixels x pairs): check_small_render's
+# scene (400 Gaussians, SH3, 100x72, budget 8,192) against the kernels'
+# path, one render and one training step's parameter gradients; and
+# eval_cli --backend reference on the vendored run's step-100 PLY at a
+# quarter of the images' size (64x48), against eval_cli on the kernels.
+REF_WIDTH, REF_HEIGHT, REF_MAX_PAIRS = 100, 72, 8192
+REF_EVAL_FACTOR, REF_EVAL_MAX_PAIRS = 0.25, 32768
+# eval_cli metrics against each other (tests/test_torch_cli.py's bars).
+PSNR_ATOL_DB, SSIM_ATOL, L1_ATOL = 0.01, 1e-4, 1e-5
+# The profiler phase: IntervalProfiler over PROFILE_STEPS training steps,
+# then one step under trace(), whose file must name K1-K4's kernels.
+PROFILE_STEPS = 3
+TRACE_KERNELS = {"merge_gather": "merge_gather_kernel", "raster_fwd": "raster_fwd_kernel",
+                 "raster_bwd": "raster_bwd_kernel", "segsum": "segsum_kernel"}
 
 
 class SmokeFailure(RuntimeError):
@@ -952,7 +988,7 @@ def first_step_geometry(trainer, view: int = 0, band=None):
         means2d, rect_min, rect_max = band_window(p, rows, first)
         packed = rasterize_ref.pack_gaussians(means2d, p.conic, p.colors, opacity, p.depths)
     st = staging.StagingStatic(width, rows, cfg.tile_w, cfg.tile_h, cfg.max_pairs,
-                               cfg.chunk_size)
+                               cfg.chunk_size, cfg.grad_reduce)
     return (packed, rect_min, rect_max, p.radii, p.depths), st
 
 
@@ -1052,16 +1088,16 @@ def check_training_buffers(trainer, device, label="training buffers, first step"
     return {"merge_gather": merge, "raster_fwd": fwd, "raster_bwd": bwd, "segsum": segsum}
 
 
-def run_training(trainer, counters):
-    """The training path through its entry point, counters zeroed just
-    before and read just after."""
+def run_training(trainer, counters, steps=TRAIN_STEPS):
+    """The training path through its entry point, ``steps`` steps, counters
+    zeroed just before and read just after."""
     for k in counters.values():
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     log = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    final = trainer.run(TRAIN_STEPS, on_metrics=log.append)
+    final = trainer.run(steps, on_metrics=log.append)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: k.launches for name, k in counters.items()}
@@ -1069,10 +1105,10 @@ def run_training(trainer, counters):
 
 
 def check_train_run(trainer, log, final, launches, expected, seconds, peak_mem, what,
-                    extra=""):
-    """The checks of a training run: finite, falling losses, gradients that
-    reach the Gaussians, no overflow, every step run, and the expected
-    launch count of every kernel."""
+                    extra="", steps=TRAIN_STEPS):
+    """The checks of a training run of ``steps`` steps: finite, falling
+    losses, gradients that reach the Gaussians, no overflow, every step
+    run, and the expected launch count of every kernel."""
     gpu = gpu_line()
     require(len(log) >= 2 and all(np.isfinite(m["loss"]) for m in log),
             f"{what}: non-finite or missing losses: {[m['loss'] for m in log]}")
@@ -1080,17 +1116,17 @@ def check_train_run(trainer, log, final, launches, expected, seconds, peak_mem, 
             f"{what}: loss did not fall: {log[0]['loss']} -> {log[-1]['loss']}")
     require(final["grad_coverage"] > 0, f"{what}: no gaussian received a gradient")
     require(final["overflow_pairs_acc"] == 0, f"{what}: a training step overflowed the budget")
-    require(int(trainer.state.step) == TRAIN_STEPS, f"{what}: not every step ran")
+    require(int(trainer.state.step) == steps, f"{what}: not every step ran")
     require(launches == expected, f"{what}: launches {launches}, expected {expected}")
     window = sum(5 / m["iters_per_s"] for m in log[1:])
-    print(f"{what}: {TRAIN_STEPS} steps of {int(final['num_active'])} gaussians "
+    print(f"{what}: {steps} steps of {int(final['num_active'])} gaussians "
           f"SH{SH_DEGREE} {WIDTH}x{HEIGHT} tile {TRAIN_TILE} over {TRAIN_VIEWS} views, "
           f"max_pairs {trainer.cfg.raster.max_pairs}{extra}, num_pairs "
           f"{int(final['num_pairs'])}; loss {log[0]['loss']:.5f} -> {log[-1]['loss']:.5f}, "
           f"psnr {log[0]['psnr']:.3f} -> {log[-1]['psnr']:.3f} dB, grad_coverage "
-          f"{final['grad_coverage']:.4f}; {TRAIN_STEPS / seconds:.2f} steps/s over all "
-          f"{TRAIN_STEPS} steps, {5 * (len(log) - 1) / window:.2f} steps/s over steps "
-          f"6-{TRAIN_STEPS}; peak memory {peak_mem / 2**30:.3f} GiB; launches "
+          f"{final['grad_coverage']:.4f}; {steps / seconds:.2f} steps/s over all "
+          f"{steps} steps, {5 * (len(log) - 1) / window:.2f} steps/s over steps "
+          f"6-{steps}; peak memory {peak_mem / 2**30:.3f} GiB; launches "
           f"{launches} | {gpu}", flush=True)
 
 
@@ -1451,6 +1487,8 @@ def run_vendor(tmp: Path, counters, expect, gpu: str) -> dict:
           f"{steps_per_s(history, 100):.2f} over steps 101-{steps}; peak memory "
           f"{peak / 2**30:.3f} GiB; launches {launches} | {gpu}", flush=True)
     del res, trainer
+    # The oracle through eval_cli on the step-100 PLY, at a quarter size.
+    eval_ref_launches = check_eval_reference(out / "iteration_100.ply", counters, expect)
 
     resumed, _, resume_launches, _ = cli_run(
         train_cli, argv + ["--output", str(tmp / "vendor_resumed"), "--resume",
@@ -1465,7 +1503,7 @@ def run_vendor(tmp: Path, counters, expect, gpu: str) -> dict:
           f"run's (output_dir aside); launches {resume_launches} | {gpu}", flush=True)
     del resumed
     return {"vendor": launches, "vendor_eval": eval_launches[steps],
-            "vendor_resumed": resume_launches}
+            "vendor_eval_reference": eval_ref_launches, "vendor_resumed": resume_launches}
 
 
 def vendor_module():
@@ -1999,6 +2037,319 @@ def run_cli_parallel(tmp: Path, gpu: str) -> dict:
     return entry
 
 
+def check_scatter_buffers(trainer):
+    """The scatter reduction on the first-step buffers of a scatter training
+    run (view 0, K3's rows of the L1 + SSIM cotangent): against the K4 path
+    (``sort_by_gid`` + K4) at K4's tolerance, two launches compared bit for
+    bit (held to K4's tolerance where they differ), timed beside the K4
+    path's parts and ``index_add_`` (float atomics) on the same rows.
+    Returns the kernels line's entry fields."""
+    from gaussiansplattingmlx_tpu_torch.ops import rasterize_cuda, segsum_cuda, staging
+
+    args, st = first_step_geometry(trainer)
+    num_rec = trainer.state.params.capacity
+    with torch.no_grad():
+        sp, gid = staging._stage_train_impl(st, *args)
+    require(int(sp.overflow_pairs) == 0, "scatter training buffers overflow")
+    tile = st.tile_w
+    grid = (-(-st.image_width // tile), -(-st.image_height // tile))
+    block, _ = loss_cotangent_block(sp.records_cm, sp.tile_start, sp.tile_count,
+                                    st.image_width, st.image_height, tile,
+                                    trainer.views["target_rgb"][0])
+    rows = rasterize_cuda.raster_bwd(sp.records_cm, sp.tile_start, sp.tile_count, block,
+                                     *grid, tile, tile)
+    pairs = int(sp.num_pairs)
+    del sp, block
+    got = rasterize_cuda.scatter_reduce(rows, gid, num_rec)
+    again = rasterize_cuda.scatter_reduce(rows, gid, num_rec)
+    k4 = segsum_cuda.segment_reduce(rows, gid, num_rec)
+    torch.cuda.synchronize()
+    scale = float(k4.abs().max())
+    torch.testing.assert_close(got, k4, rtol=SEGSUM_RTOL, atol=SEGSUM_ATOL * scale)
+    stable = bit_equal(got, again)
+    if not stable:
+        torch.testing.assert_close(again, got, rtol=SEGSUM_RTOL, atol=SEGSUM_ATOL * scale)
+    repeat_err = float((again - got).abs().max())
+    err = float((got - k4).abs().max())
+    # d packed, the staging backward's result, from both reductions.
+    d_scatter = rasterize_cuda.reduce_record_cotangent(rows, gid, num_rec, "scatter")
+    d_segsum = rasterize_cuda.reduce_record_cotangent(rows, gid, num_rec, "segsum")
+    torch.testing.assert_close(d_scatter, d_segsum, rtol=SEGSUM_RTOL,
+                               atol=SEGSUM_ATOL * float(d_segsum.abs().max()))
+    del got, again, k4, d_scatter, d_segsum
+    scatter = kernel_ms(lambda: rasterize_cuda.scatter_reduce(rows, gid, num_rec))
+    k4_path = kernel_ms(lambda: segsum_cuda.segment_reduce(rows, gid, num_rec))
+    sort_ms = device_ms(lambda: segsum_cuda.sort_by_gid(rows, gid, num_rec))
+    rows_s, offsets = segsum_cuda.sort_by_gid(rows, gid, num_rec)
+    k4_ms = device_ms(lambda: segsum_cuda.segment_sum_sorted(rows_s, offsets))
+    del rows_s, offsets
+    valid = gid < num_rec
+    idx = torch.where(valid, gid, 0).long()
+    masked = torch.where(valid[:, None], rows.T, 0.0)
+    out = torch.zeros((num_rec, rows.shape[0]), dtype=torch.float32, device=rows.device)
+    index_add_ms = device_ms(lambda: out.zero_().index_add_(0, idx, masked))
+    print(f"scatter: the scatter-add reduction on {pairs} pairs of {rows.shape[1]} columns "
+          f"into {num_rec} rows (train scatter, first step, tile {tile}) within rtol "
+          f"{SEGSUM_RTOL} of sort_by_gid + K4 (max abs err {err:.3g}; d packed too); two "
+          f"launches bit-identical: {stable} (max abs difference {repeat_err:.3g}); device "
+          f"{scatter['ms']:.4f} ms (a call {scatter['call_ms']:.4f} ms) against sort_by_gid + "
+          f"K4 {k4_path['ms']:.4f} ms (a call {k4_path['call_ms']:.4f} ms: sort_by_gid "
+          f"{sort_ms:.4f}, K4 {k4_ms:.4f}); index_add_ (float atomics) {index_add_ms:.4f} ms "
+          f"| {gpu_line()}", flush=True)
+    return {"scatter_ms": scatter["ms"], "scatter_call_ms": scatter["call_ms"],
+            "scatter_bit_stable": stable, "scatter_repeat_max_abs_diff": repeat_err,
+            "scatter_max_abs_err_vs_k4": err, "scatter_k4_path_ms": k4_path["ms"],
+            "scatter_k4_path_call_ms": k4_path["call_ms"], "scatter_sort_ms": sort_ms,
+            "scatter_k4_ms": k4_ms, "scatter_index_add_ms": index_add_ms}
+
+
+def run_scatter(ply_path: Path, data, device, max_pairs: int, sorted_log, counters,
+                expect) -> tuple:
+    """grad_reduce="scatter" through Trainer.run: the sorted layout for
+    TRAIN_STEPS steps (its first-step buffers checked by
+    ``check_scatter_buffers``), then the aligned and split layouts for
+    SCATTER_LAYOUT_STEPS; each at the sorted segsum run's budget, its logged
+    losses within LOSS_RTOL of that run's, launching no K4.  Returns (the
+    buffer check's fields, each run's launches)."""
+    from gaussiansplattingmlx_tpu_torch import config
+
+    sorted_losses = np.array([m["loss"] for m in sorted_log])
+    entry, runs = {}, {}
+    for layout, steps, launched in (
+            ("sorted", TRAIN_STEPS, dict(merge_gather=1, raster_bwd=1)),
+            ("aligned", SCATTER_LAYOUT_STEPS, dict(merge_gather=1, relayout=1,
+                                                   raster_bwd_aligned=1)),
+            ("split", SCATTER_LAYOUT_STEPS, dict(merge_ranks=1, raster_bwd_aligned=1))):
+        trainer = make_trainer(ply_path, data, device, grad_reduce="scatter",
+                               **config.LAYOUTS[layout])
+        trainer.set_max_pairs(max_pairs)
+        if layout == "sorted":
+            entry = check_scatter_buffers(trainer)
+        log, final, seconds, launches = run_training(trainer, counters, steps)
+        losses = np.array([m["loss"] for m in log])
+        want = sorted_losses[:len(losses)]
+        rel = float(np.max(np.abs(losses - want) / want))
+        require(rel <= LOSS_RTOL, f"train scatter {layout}: losses {losses.tolist()} differ "
+                                  f"from the sorted segsum run's {want.tolist()}")
+        check_train_run(trainer, log, final, launches,
+                        expect(raster_fwd=steps, **{k: v * steps for k, v in launched.items()}),
+                        seconds, torch.cuda.max_memory_allocated(), f"train scatter {layout}",
+                        f" (grad_reduce='scatter'; logged losses within {rel:.2e} of the "
+                        f"sorted segsum run's)", steps=steps)
+        runs[layout] = launches
+        del trainer
+    return entry, runs
+
+
+def small_trainer(device, **raster):
+    """A Trainer of check_small_render's scene (400 points, SH3) on one
+    100x72 camera whose target is a seeded uniform random image, which is
+    what makes the gradients non-zero."""
+    from gaussiansplattingmlx_tpu_torch import config
+    from gaussiansplattingmlx_tpu_torch.data.dataset import TrainData
+    from gaussiansplattingmlx_tpu_torch.train.trainer import Trainer
+    from gaussiansplattingmlx_tpu_torch.utils.camera import Camera
+    from gaussiansplattingmlx_tpu_torch.utils.point_cloud import PointCloud
+
+    raw = small_scene()
+    c2w = np.eye(4)
+    c2w[2, 3] = -4.0
+    cam = Camera.from_c2w(REF_WIDTH, REF_HEIGHT, 90.0, 90.0, c2w)
+    target = np.random.default_rng(SEED + 2).uniform(
+        size=(1, REF_HEIGHT, REF_WIDTH, 3)).astype(np.float32)
+    pc = PointCloud(coords=raw["xyz"], colors=np.full((400, 3), 128.0, np.float32))
+    cfg = config.TrainConfig(
+        iterations=10, init_points=400, output_dir="", seed=SEED,
+        model=config.ModelConfig(sh_degree=SH_DEGREE, initial_capacity=512),
+        raster=config.RasterizerConfig(max_pairs=REF_MAX_PAIRS, **raster),
+        densify=config.DensifyConfig(from_iter=10 ** 9))
+    return Trainer(cfg, TrainData(cameras=[cam], images=target), pc, device=device)
+
+
+def check_reference(device, counters, expect) -> dict:
+    """The oracle on the card: render(backend="reference") of a small
+    trainer's scene against the kernels' training render at the JAX image
+    bars, and one training step's parameter gradients (L1 + SSIM against
+    the target) at the JAX gradient bars; the oracle launches only K5 (its
+    binning).  Returns its launches."""
+    from gaussiansplattingmlx_tpu_torch.train import trainer as trainer_mod
+
+    trainer = small_trainer(device)
+    state, views = trainer.state, trainer.views
+
+    def take(k):
+        return views[k][0]
+
+    def step(backend):
+        leaves, _, out, aux = trainer_mod.render_view(trainer.cfg, state, take, REF_WIDTH,
+                                                      REF_HEIGHT, SH_DEGREE, backend)
+        loss, _ = trainer_mod.view_loss(trainer.cfg, out.color, out.depth, take)
+        return out, aux, trainer_mod.param_grads(loss, leaves), loss
+
+    results = {}
+    for backend in ("auto", "reference"):
+        step(backend)  # the first call's set-up stays out of the time
+        zero_counters(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, aux, grads, loss = step(backend)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in counters.items()}
+        require(int(aux.overflow_pairs) == 0 and int(aux.num_pairs) > 0,
+                f"reference phase ({backend}): pairs {int(aux.num_pairs)}, overflow "
+                f"{int(aux.overflow_pairs)}")
+        results[backend] = (out, aux, grads, launches, seconds, float(loss.detach()))
+    k_out, k_aux, k_grads, k_launches, k_s, k_loss = results["auto"]
+    r_out, r_aux, r_grads, r_launches, r_s, r_loss = results["reference"]
+    require(k_launches == expect(merge_gather=1, raster_fwd=1, raster_bwd=1, segsum=1),
+            f"reference phase: the kernels' step launched {k_launches}")
+    require(r_launches == expect(merge_ranks=1),
+            f"reference phase: the oracle's step launched {r_launches}")
+    require(int(r_aux.num_pairs) == int(k_aux.num_pairs)
+            and int(r_aux.tile_depth_max) == int(k_aux.tile_depth_max),
+            "reference phase: pair counts differ")
+    torch.testing.assert_close(r_out.color, k_out.color, rtol=COLOR_RTOL, atol=COLOR_ATOL)
+    torch.testing.assert_close(r_out.depth, k_out.depth, rtol=DEPTH_RTOL, atol=DEPTH_ATOL)
+    torch.testing.assert_close(r_out.alpha, k_out.alpha, rtol=COLOR_RTOL, atol=COLOR_ATOL)
+    mismatch = float((r_out.n_contrib != k_out.n_contrib).float().mean())
+    require(mismatch <= NCON_MISMATCH, f"reference phase: n_contrib mismatch {mismatch}")
+    for name, want in r_grads.items():
+        scale = max(float(want.abs().max()), 1e-30)
+        torch.testing.assert_close(k_grads[name], want, rtol=GRAD_RTOL, atol=GRAD_ATOL * scale,
+                                   msg=lambda m, n=name: f"reference phase, d {n}: {m}")
+    require(any(float(g.abs().max()) > 0 for g in r_grads.values()),
+            "reference phase: zero gradients")
+    print(f"reference: render(backend='reference') on the card, {int(r_aux.num_pairs)} pairs "
+          f"of 400 gaussians SH{SH_DEGREE} {REF_WIDTH}x{REF_HEIGHT}, budget {REF_MAX_PAIRS}: "
+          f"image within rtol {COLOR_RTOL} / atol {COLOR_ATOL} of the kernels' path, n_contrib "
+          f"mismatch {mismatch:.5f}; loss {r_loss:.6f} (kernels {k_loss:.6f}); the six "
+          f"parameter gradients within rtol {GRAD_RTOL} / atol {GRAD_ATOL} x their largest; "
+          f"render + loss + backward {1e3 * r_s:.2f} ms (kernels {1e3 * k_s:.2f} ms; host "
+          f"clock, second calls); launches {r_launches} | {gpu_line()}", flush=True)
+    return r_launches
+
+
+def check_eval_reference(ply_path: Path, counters, expect) -> dict:
+    """eval_cli --backend reference on the vendored scene at REF_EVAL_FACTOR
+    against eval_cli on the kernels, same budget: the JAX CLI bars on the
+    metrics and the JAX image bars on every view.  Returns its launches."""
+    from gaussiansplattingmlx_tpu_torch import eval_cli
+
+    argv = ["--dataset", "colmap", "--root", str(VENDOR), "--ply", str(ply_path),
+            "--resize-factor", str(REF_EVAL_FACTOR), "--max-pairs", str(REF_EVAL_MAX_PAIRS),
+            "--device", "cuda"]
+    ker, ker_s, ker_launches, _ = cli_run(eval_cli, argv, counters)
+    ref, ref_s, ref_launches, ref_mem = cli_run(eval_cli, argv + ["--backend", "reference"],
+                                                counters)
+    views = ref.metrics["views"]
+    require(views == 10 and ref_launches == expect(merge_ranks=views),
+            f"eval_cli --backend reference: {views} views, launches {ref_launches}")
+    require(ker_launches == expect(merge_gather=views, raster_fwd=views),
+            f"eval_cli (kernels): launches {ker_launches}")
+    require(ref.overflow_pairs == ker.overflow_pairs == [0] * views
+            and ref.num_pairs == ker.num_pairs, f"eval_cli reference: pairs {ref.num_pairs} / "
+            f"{ker.num_pairs}, overflow {ref.overflow_pairs} / {ker.overflow_pairs}")
+    for a, b in zip(ref.colors, ker.colors):
+        np.testing.assert_allclose(a, b, rtol=COLOR_RTOL, atol=COLOR_ATOL)
+    got, want = ref.metrics, ker.metrics
+    require(abs(got["psnr_mean"] - want["psnr_mean"]) <= PSNR_ATOL_DB
+            and abs(got["ssim_mean"] - want["ssim_mean"]) <= SSIM_ATOL
+            and abs(got["l1_mean"] - want["l1_mean"]) <= L1_ATOL,
+            f"eval_cli reference metrics {got} against the kernels' {want}")
+    h, w = ref.colors[0].shape[:2]
+    print(f"eval_cli --backend reference: {ply_path.name} of the vendored run, {views} views "
+          f"{w}x{h}, budget {REF_EVAL_MAX_PAIRS}, pairs {min(ref.num_pairs)}-"
+          f"{max(ref.num_pairs)}: PSNR {got['psnr_mean']:.4f} dB against {want['psnr_mean']:.4f} "
+          f"on the kernels, SSIM {got['ssim_mean']:.5f} / {want['ssim_mean']:.5f}, every view "
+          f"within the image bars; {ref_s:.2f} s (kernels {ker_s:.2f} s, host clock); peak "
+          f"memory {ref_mem / 2**30:.3f} GiB; launches {ref_launches} | {gpu_line()}",
+          flush=True)
+    return ref_launches
+
+
+def check_profiler(ply_path: Path, data, device, max_pairs: int, tmp: Path) -> None:
+    """The profiler on the default training step: IntervalProfiler with
+    sync_on over PROFILE_STEPS steps prints its report, and trace() of one
+    more step writes a Chrome trace that names K1-K4's kernels."""
+    from gaussiansplattingmlx_tpu_torch.utils.profiler import IntervalProfiler, trace
+
+    trainer = make_trainer(ply_path, data, device)
+    trainer.set_max_pairs(max_pairs)
+    prof = IntervalProfiler()
+    state = trainer.state
+    for i in range(PROFILE_STEPS):
+        with prof.measure("step", sync_on=state.params.xyz):
+            with prof.measure("train_step"):
+                state, metrics, _ = trainer.train_step(state, trainer.views, i % data.num_views)
+            with prof.measure("metrics to host", sync_on=metrics):
+                loss = float(metrics["loss"])
+    report = prof.report()
+    print(report, flush=True)
+    require(prof.sections["step"].count == PROFILE_STEPS and np.isfinite(loss)
+            and prof.sections["step"].total >= prof.sections["train_step"].total,
+            "profiler: sections not nested as measured")
+    out = tmp / "trace"
+    with trace(str(out)):
+        state, metrics, _ = trainer.train_step(state, trainer.views, 0)
+        torch.cuda.synchronize()
+    files = sorted(out.glob("trace_*.json"))
+    require(len(files) == 1, f"profiler: trace files {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = " ".join(e.get("name", "") for e in kernels)
+    missing = [k for k, v in TRACE_KERNELS.items() if v not in names]
+    require(not missing, f"profiler: the trace names no kernel of {missing}")
+    busy = sum(float(e.get("dur", 0)) for e in kernels) / 1e3
+    print(f"profiler: IntervalProfiler with sync_on over {PROFILE_STEPS} training steps (report "
+          f"above: {prof.sections['step'].total / PROFILE_STEPS * 1e3:.2f} ms a step, host "
+          f"clock after a device sync); trace() of one step wrote {files[0].name} "
+          f"({files[0].stat().st_size} bytes, {len(kernels)} kernel events, {busy:.3f} ms of "
+          f"kernel time), naming {sorted(TRACE_KERNELS.values())} | {gpu_line()}", flush=True)
+
+
+def check_native() -> None:
+    """The native COLMAP parsers, built here with the host C++ compiler
+    (the first use in this run), against the Python parsers on the
+    vendored scene's sparse/: equal bit for bit; both times printed."""
+    from gaussiansplattingmlx_tpu_torch.data import colmap, native_io
+
+    t0 = time.perf_counter()
+    native_io.library()
+    build_s = time.perf_counter() - t0
+    sparse = VENDOR / "sparse" / "0"
+    times = {}
+    for name, native, plain in (
+            ("cameras.bin", colmap.read_cameras_bin, colmap.read_cameras_bin_plain),
+            ("images.bin", colmap.read_images_bin, colmap.read_images_bin_plain),
+            ("points3D.bin", colmap.read_points3d_bin, colmap.read_points3d_bin_plain)):
+        got, want = {}, {}
+        for fn, into in ((native, got), (plain, want)):
+            t0 = time.perf_counter()
+            into["value"] = fn(sparse / name)
+            into["ms"] = 1e3 * (time.perf_counter() - t0)
+        require(same_value(got["value"], want["value"]),
+                f"native parser: {name} differs from the Python parser's")
+        times[name] = (got["ms"], want["ms"])
+    print(f"native: the COLMAP parsers built in {build_s:.2f} s and equal to the Python "
+          f"parsers bit for bit on tests/fixtures/vendor_scene/sparse/0; ms native / Python: "
+          + ", ".join(f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in times.items())
+          + f" (host clock, one call) | {gpu_line()}", flush=True)
+
+
+def same_value(a, b) -> bool:
+    """Nested dicts, lists and arrays equal in type, dtype, shape and bits."""
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(same_value(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_value(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+    return a == b
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2007,6 +2358,11 @@ def main() -> int:
         print("chip_smoke: the port's package is not beside this script", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+
+    def elapsed(phase: str) -> None:
+        print(f"elapsed: {time.perf_counter() - t_start:.1f} s after the {phase} phase",
+              flush=True)
+
     sys.path.insert(0, str(ROOT))
     from gaussiansplattingmlx_tpu_torch import config, render_cli
     from gaussiansplattingmlx_tpu_torch.ops import (
@@ -2055,6 +2411,9 @@ def main() -> int:
         merge_serving = check_merge(args, st, device)
         fwd_serving = check_raster(args, st)
         check_small_render(device)
+        # 3b. the oracle (backend="reference") against the kernels' path
+        ref_launches = check_reference(device, counters, expect)
+        elapsed("reference")
 
         # 4. the serving path through its entry point
         for k in counters.values():
@@ -2110,6 +2469,7 @@ def main() -> int:
                         seconds, torch.cuda.max_memory_allocated(), "train",
                         f" (probe peak {peak}; {peak16} at tile 16)")
         max_pairs = trainer.cfg.raster.max_pairs
+        sorted_log = log
         sorted_losses = np.array([m["loss"] for m in log])
         # 6b. densify on the card against densify on the CPU, from this
         # run's state
@@ -2142,6 +2502,13 @@ def main() -> int:
             del trainer
         relayout = layout_entries["relayout"]
         raster_bwd_aligned = layout_entries["raster_bwd_aligned"]
+        # 7b. grad_reduce="scatter" in the three layouts (no K4), and the
+        # profiler on the default layout's step
+        scatter_entry, scatter_runs = run_scatter(ply_path, data, device, max_pairs,
+                                                  sorted_log, counters, expect)
+        elapsed("scatter")
+        check_profiler(ply_path, data, device, max_pairs, Path(tmp))
+        elapsed("profiler")
         # K5 at the split training run's budget, with the split serving
         # budget's numbers beside them.
         merge_ranks = {**layout_entries["merge_ranks"],
@@ -2211,14 +2578,18 @@ def main() -> int:
               flush=True)
         del full_state
 
-        # 11. the COLMAP loader, without Pillow
+        # 11. the native COLMAP parsers (built here), then the loader
+        # without Pillow
+        check_native()
         check_loader()
         # 12. the vendored scene through train_cli and eval_cli at the
         # default config, and a resume through train_cli
         cli_launches = run_vendor(Path(tmp), counters, expect, gpu)
+        elapsed("vendored CLI")
         # 13. the full-width scene through train_cli and eval_cli
         trainer, full_launches = run_full(Path(tmp), counters, expect, gpu)
         cli_launches.update(full_launches)
+        elapsed("full-width CLI")
         # 14. K2, K1, K3 and K4 on the buffers of the full-width run's last
         # step (SH4, tile 16, densified)
         cli = check_training_buffers(trainer, device,
@@ -2228,6 +2599,7 @@ def main() -> int:
         # steps against one device and their runs through Trainer.run; K1-K4
         # on a 400-row band buffer
         par = run_parallel(ply_path, Path(tmp), device, gpu)
+        elapsed("parallel")
         # 16. train_cli --data-parallel 2, its resume and --multihost
         cli_par = run_cli_parallel(Path(tmp), gpu)
 
@@ -2249,7 +2621,7 @@ def main() -> int:
     segsum_keys = (*timed, "library_ms", "sort_ms", "gather_ms", "gather_one_ms", "segments")
     segsum = {**train_entries["segsum"],
               **{f"bench_tile16_{k}": segsum_bench[k] for k in segsum_keys},
-              "design": SEGSUM_DESIGN}
+              "design": SEGSUM_DESIGN, **scatter_entry}
     # K1-K4 on the densified run's grown buffers (262,144 rows).
     merge_gather.update({f"grown_{k}": grown["merge_gather"][k] for k in timed})
     raster_fwd.update({f"grown_{k}": grown["raster_fwd"][k] for k in (*timed, "pixel_records")})
@@ -2261,6 +2633,16 @@ def main() -> int:
     raster_fwd.update({f"cli_{k}": cli["raster_fwd"][k] for k in (*timed, "pixel_records")})
     raster_bwd.update({f"cli_{k}": cli["raster_bwd"][k] for k in timed})
     segsum.update({f"cli_{k}": cli["segsum"][k] for k in segsum_keys})
+    # Every kernel's launches in the scatter runs (K4 none) and in the
+    # oracle's render and eval_cli run (K5 only, its binning).
+    for name, entry in (("merge_gather", merge_gather), ("raster_fwd", raster_fwd),
+                        ("raster_bwd", raster_bwd), ("segsum", segsum),
+                        ("merge_ranks", merge_ranks), ("relayout", relayout),
+                        ("raster_bwd_aligned", raster_bwd_aligned)):
+        entry["launches_scatter"] = {layout: launched[name]
+                                     for layout, launched in scatter_runs.items()}
+        entry["launches_reference"] = {"render": ref_launches[name],
+                                       "eval_cli": cli_launches["vendor_eval_reference"][name]}
     for name, entry in (("merge_gather", merge_gather), ("raster_fwd", raster_fwd),
                         ("raster_bwd", raster_bwd), ("segsum", segsum)):
         entry["launches_densified"] = dense_launches[name]

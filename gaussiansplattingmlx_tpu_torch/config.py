@@ -2,11 +2,8 @@
 (same fields, same defaults; a test pins the two packages' fields).
 
 The port keeps its own copy so that it never imports the JAX package.
-``RasterizerConfig`` checks its layout selectors when it is built: every
-value the port runs is accepted, the JAX package's values the port has not
-ported raise ``NotImplementedError``, anything else raises ``ValueError``.
-``ParallelConfig`` is carried for config files; the port trains on one
-device only so far.
+``RasterizerConfig`` checks its selectors when it is built: every value of
+the JAX package's is accepted, anything else raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -33,7 +30,9 @@ class RasterizerConfig:
     # chunks), trailing zero columns of the sorted buffers, and the budget
     # quantum of render_cli's auto pair budget.
     chunk_size: int = 128
-    # Per-Gaussian gradient reduction: "segsum" (gid sort + kernel K4).
+    # Per-Gaussian gradient reduction: "segsum" (gid sort + kernel K4) or
+    # "scatter" (a scatter-add of each record column into its gaussian's
+    # row, ``rasterize_cuda.scatter_reduce``).
     grad_reduce: str = "segsum"
     # Compositing constants.
     alpha_clamp: float = 0.99
@@ -47,7 +46,12 @@ class RasterizerConfig:
     radius_eigen_eps: float = 1e-5
     quat_norm_eps: float = 1e-8
     # "auto", "pallas" and "pallas_interpret" all mean the port's kernels on
-    # CUDA tensors and their plain versions on CPU tensors.
+    # CUDA tensors and their plain versions on CPU tensors; "reference" is
+    # the oracle rasterizer (``ops/rasterize_ref.rasterize_reference``, plain
+    # torch on any device).  The JAX package's "auto" means "reference" off
+    # a TPU; the port's does not, because its kernels' plain versions are
+    # the JAX kernels' counterparts on the CPU and the tests hold them to
+    # the JAX package there: the oracle is chosen by name.
     backend: str = "auto"
     # "fused": merge-gather staging (``ops/staging.py``); inference always
     # composites sorted-order records.  "split": ``binning.bin_gaussians``
@@ -59,20 +63,20 @@ class RasterizerConfig:
     train_staging: str = "sorted"
 
     def __post_init__(self):
-        for name, ported, unported in (
-            ("backend", ("auto", "pallas", "pallas_interpret"), ("reference",)),
-            ("grad_reduce", ("segsum",), ("scatter",)),
-            ("staging", ("fused", "split"), ()),
-            ("train_staging", ("sorted", "aligned"), ()),
-        ):
+        for name, values in SELECTORS.items():
             value = getattr(self, name)
-            if value in unported:
-                raise NotImplementedError(
-                    f"RasterizerConfig.{name}={value!r} is not ported yet "
-                    f"(ROADMAP.md queue A.8)")
-            if value not in ported:
+            if value not in values:
                 raise ValueError(
-                    f"RasterizerConfig.{name}={value!r}: expected one of {ported}")
+                    f"RasterizerConfig.{name}={value!r}: expected one of {values}")
+
+
+# The values of each RasterizerConfig selector.
+SELECTORS = {
+    "backend": ("auto", "pallas", "pallas_interpret", "reference"),
+    "grad_reduce": ("segsum", "scatter"),
+    "staging": ("fused", "split"),
+    "train_staging": ("sorted", "aligned"),
+}
 
 
 # The RasterizerConfig fields that select each record layout: "sorted" the

@@ -1,8 +1,12 @@
-"""COLMAP binary dataset loader (numpy + struct; the port's copy of the JAX
-package's ``data/colmap.py``, without its native parser).
+"""COLMAP binary dataset loader (the port's copy of the JAX package's
+``data/colmap.py``).
 
-Camera models SIMPLE_PINHOLE, PINHOLE, SIMPLE_RADIAL and OPENCV (focal and
-center only; distortion is ignored); an image's pose quat(w, x, y, z) + t is
+The three ``sparse/`` files are parsed by the native library
+(``native_io``, built at first use), as the JAX package does when its
+library is built; ``read_*_bin_plain`` are the same parsers in numpy +
+struct, the plain versions the tests hold the native ones to.  Camera
+models SIMPLE_PINHOLE, PINHOLE, SIMPLE_RADIAL and OPENCV (focal and center
+only; distortion is ignored); an image's pose quat(w, x, y, z) + t is
 world -> camera, converted to c2w = [R^T | -R^T t]; the points' tracks are
 skipped.  Layout: <root>/sparse/0/*.bin (or <root>/sparse/*.bin) and
 <root>/images.  Images are read and resized by ``utils/png.py``, to the
@@ -20,6 +24,7 @@ import numpy as np
 from ..utils.camera import Camera
 from ..utils.png import read_image, resize_bilinear
 from ..utils.point_cloud import PointCloud
+from . import native_io
 from .dataset import TrainData
 
 CAMERA_MODEL_PARAMS = {
@@ -49,6 +54,11 @@ class _Reader:
 
 
 def read_cameras_bin(path) -> Dict[int, dict]:
+    """camera_id -> intrinsics dict (width, height, fx, fy, cx, cy)."""
+    return native_io.parse_cameras(Path(path).read_bytes())
+
+
+def read_cameras_bin_plain(path) -> Dict[int, dict]:
     r = _Reader(Path(path).read_bytes())
     (n,) = r.read("Q")
     cams = {}
@@ -67,31 +77,47 @@ def read_cameras_bin(path) -> Dict[int, dict]:
     return cams
 
 
+def _image(image_id, camera_id, name, qvec, tvec) -> dict:
+    """An image's entry; the pose quat(w, x, y, z) + t is world -> camera,
+    c2w = [R^T | -R^T t]."""
+    R = _quat_to_rot(*qvec)
+    c2w = np.eye(4)
+    c2w[:3, :3] = R.T
+    c2w[:3, 3] = -R.T @ np.asarray(tvec)
+    return dict(image_id=image_id, camera_id=camera_id, name=name, c2w=c2w)
+
+
 def read_images_bin(path) -> List[dict]:
     """Every image's id, camera id, file name and c2w, sorted by name."""
+    images = [_image(im["image_id"], im["camera_id"], im["name"], im["qvec"], im["tvec"])
+              for im in native_io.parse_images(Path(path).read_bytes())]
+    images.sort(key=lambda d: d["name"])
+    return images
+
+
+def read_images_bin_plain(path) -> List[dict]:
     r = _Reader(Path(path).read_bytes())
     (n,) = r.read("Q")
     images = []
     for _ in range(n):
         (image_id,) = r.read("i")
-        qw, qx, qy, qz = r.read("dddd")
-        tx, ty, tz = r.read("ddd")
+        qvec = r.read("dddd")
+        tvec = r.read("ddd")
         (camera_id,) = r.read("i")
         name = r.read_string()
         (num_pts,) = r.read("Q")
         r.pos += num_pts * struct.calcsize("<ddq")  # skip the 2D points
-        R = _quat_to_rot(qw, qx, qy, qz)
-        t = np.array([tx, ty, tz])
-        c2w = np.eye(4)
-        c2w[:3, :3] = R.T
-        c2w[:3, 3] = -R.T @ t
-        images.append(dict(image_id=image_id, camera_id=camera_id, name=name, c2w=c2w))
+        images.append(_image(image_id, camera_id, name, qvec, tvec))
     images.sort(key=lambda d: d["name"])
     return images
 
 
 def read_points3d_bin(path) -> Tuple[np.ndarray, np.ndarray]:
     """(xyz [N, 3] float32, rgb [N, 3] float32 in 0..255)."""
+    return native_io.parse_points3d(Path(path).read_bytes())
+
+
+def read_points3d_bin_plain(path) -> Tuple[np.ndarray, np.ndarray]:
     r = _Reader(Path(path).read_bytes())
     (n,) = r.read("Q")
     xyz = np.empty((n, 3), np.float32)

@@ -28,7 +28,7 @@ from .config import RasterizerConfig
 from .data import ply as ply_mod
 from .models.gaussians import activations, params_from_numpy
 from .ops import losses, ssim
-from .render import render
+from .render import render, resolve_backend
 from .train.trainer import resolve_device
 from .train_cli import LOADERS
 from .utils.png import write_png
@@ -43,7 +43,9 @@ def parse_args(argv=None):
     p.add_argument("--ply", required=True)
     p.add_argument("--resize-factor", type=float, default=0.5)
     p.add_argument("--white-background", action="store_true")
-    p.add_argument("--backend", default=None)
+    p.add_argument("--backend", default=None,
+                   help="rasterizer backend: auto | pallas (the port's kernels "
+                        "on CUDA) | reference (the oracle rasterizer)")
     p.add_argument("--max-pairs", type=int, default=None)
     p.add_argument("--tile", type=int, default=None)
     p.add_argument("--save-renders", default=None)
@@ -73,8 +75,8 @@ def main(argv=None) -> EvalResult:
         cfg = dataclasses.replace(cfg, max_pairs=args.max_pairs)
     if args.tile:
         cfg = dataclasses.replace(cfg, tile_h=args.tile, tile_w=args.tile)
-    if args.backend:
-        cfg = dataclasses.replace(cfg, backend=args.backend)
+    if args.backend is not None:
+        resolve_backend(args.backend)  # an unknown name raises before any work
 
     data, pcd = LOADERS[args.dataset](
         args.root, resize_factor=args.resize_factor, white_background=args.white_background)
@@ -103,7 +105,8 @@ def main(argv=None) -> EvalResult:
         with torch.no_grad():
             out, aux = render(means, shs, opacity, scales, rots, *cam, data.width,
                               data.height, params.sh_degree, raster_cfg=cfg,
-                              white_background=args.white_background, inference=True)
+                              white_background=args.white_background, inference=True,
+                              backend=args.backend)
             color = out.color
             target = torch.as_tensor(data.images[i]).to(device)
             psnrs.append(float(losses.psnr(color, target)))

@@ -48,6 +48,8 @@ _REC_ROWS = 11  # rows the compositing reads
 # Pixels of a tile: K3 and K7 run a block a tile with at most 4 pixels a
 # thread in 256 threads; K1 runs blocks of 128 pixels, one a thread.
 _MAX_BLOCK = 1024
+# The scatter reduction's most columns of no gaussian per scratch row.
+_SCATTER_SPAN = 1024
 
 KERNEL = _kernels.Kernel(
     "gsplat_raster_fwd",
@@ -412,14 +414,48 @@ def aligned_relayout(tile_start, tile_count, chunk: int, num_aligned: int):
     return (aligned_start, *aligned_slots(tile_start, tile_count, owner, rank0, chunk))
 
 
-def reduce_record_cotangent(g_cm: torch.Tensor, gid: torch.Tensor,
-                            num_rec: int) -> torch.Tensor:
+def scatter_reduce(g_cm: torch.Tensor, gid: torch.Tensor, num_rec: int) -> torch.Tensor:
+    """[16, P] per-column gradient rows + [P] int32 gaussian ids ->
+    [num_rec, 16] per-Gaussian sums: each column added into row ``gid[j]``
+    where ``gid[j] < num_rec`` (the JAX package's ``.at[idx].add(rows)``).
+    All 16 rows are summed as they are: the compositing backward writes
+    d_cs into rows 3 and 4 both, so no row is copied.
+
+    No kernel: ``index_put_(accumulate=True)``, which adds each row's
+    columns in order on every device (on CUDA it sorts the indices and walks
+    each row in one warp instead of adding with float atomics;
+    ``chip_smoke.py`` compares two launches bit for bit).
+    Columns of no gaussian go to scratch rows past ``num_rec``, at most
+    ``_SCATTER_SPAN`` a row, so that no walk is long: a budget's unused
+    columns would otherwise all land on one row."""
+    _kernels.check(g_cm.dim() == 2 and g_cm.shape[0] == REC_DIM
+                   and gid.shape == (g_cm.shape[1],) and gid.dtype == torch.int32,
+                   f"need rows [16, P] and int32 gid [P], got {tuple(g_cm.shape)} "
+                   f"and {gid.dtype} {tuple(gid.shape)}")
+    cols = g_cm.shape[1]
+    scratch = max(1, -(-cols // _SCATTER_SPAN))
+    col = torch.arange(cols, device=g_cm.device)
+    idx = torch.where(gid < num_rec, gid.long(), num_rec + col % scratch)
+    out = torch.zeros((num_rec + scratch, REC_DIM), dtype=torch.float32, device=g_cm.device)
+    out.index_put_((idx,), g_cm.T, accumulate=True)
+    return out[:num_rec]
+
+
+def reduce_record_cotangent(g_cm: torch.Tensor, gid: torch.Tensor, num_rec: int,
+                            grad_reduce: str = "segsum") -> torch.Tensor:
     """d packed [num_rec, 11] from the record-buffer cotangent [16, P] and the
     per-column gaussian id [P] (``num_rec`` = no gaussian): the per-Gaussian
-    segment sum (K4, which also copies row 3 into row 4: both conic
-    off-diagonals get d_cs), then kernel layout -> packed layout.  The one
-    backward of every staging and of the split layout's record gather."""
-    grad_rec = segsum_cuda.segment_reduce(g_cm, gid, num_rec)  # [N, 16]
+    reduction ``grad_reduce`` names, then kernel layout -> packed layout.
+    "segsum": the gid sort and the segment sum (K4, which also copies row 3
+    into row 4: both conic off-diagonals get d_cs); "scatter":
+    ``scatter_reduce``.  The one backward of every staging and of the split
+    layout's record gather."""
+    if grad_reduce == "segsum":
+        grad_rec = segsum_cuda.segment_reduce(g_cm, gid, num_rec)  # [N, 16]
+    elif grad_reduce == "scatter":
+        grad_rec = scatter_reduce(g_cm, gid, num_rec)
+    else:
+        raise ValueError(f"unknown grad_reduce {grad_reduce!r}")
     return grad_rec[:, list(PERM)]
 
 
@@ -427,50 +463,57 @@ class _GatherRecords(torch.autograd.Function):
     """The split layout's record gather.  Forward: the chunk-aligned record
     buffer [16, num_aligned], column j = kernel-layout row of gaussian
     ``aligned_idx[j]`` where ``aligned_valid[j]``, else zeros.  Backward:
-    ``reduce_record_cotangent`` (K4) on gid = aligned_idx where valid, else
-    N."""
+    ``reduce_record_cotangent`` on gid = aligned_idx where valid, else N.
+    No segment-sum width constraint applies (the JAX package falls back to
+    the scatter where no segment-sum chunk divides the aligned width; K4
+    takes any width)."""
 
     @staticmethod
-    def forward(ctx, packed, aligned_idx, aligned_valid):
+    def forward(ctx, packed, aligned_idx, aligned_valid, grad_reduce):
         n = packed.shape[0]
         rec = torch.zeros((n, REC_DIM), dtype=torch.float32, device=packed.device)
         rec[:, :_REC_ROWS] = packed.detach()[:, list(PERM)]
         gathered = torch.where(aligned_valid[:, None], rec[aligned_idx], 0.0)
         gid = torch.where(aligned_valid, aligned_idx, n).to(torch.int32)
         ctx.save_for_backward(gid)
-        ctx.num_rec = n
+        ctx.num_rec, ctx.grad_reduce = n, grad_reduce
         return gathered.T.contiguous()
 
     @staticmethod
     def backward(ctx, g_cm):
         (gid,) = ctx.saved_tensors
-        return reduce_record_cotangent(g_cm.contiguous(), gid, ctx.num_rec), None, None
+        d_packed = reduce_record_cotangent(g_cm.contiguous(), gid, ctx.num_rec,
+                                           ctx.grad_reduce)
+        return d_packed, None, None, None
 
 
 def split_records(packed, sorted_gauss_idx, tile_start, tile_count, num_tiles: int,
-                  chunk: int):
+                  chunk: int, grad_reduce: str = "segsum"):
     """The split layout's chunk-aligned record buffer: (records_cm [16,
     max_pairs + num_tiles * chunk], aligned_start [num_tiles]) from packed
     [N, 11] (reference layout) and the binning's sorted gaussian ids and
-    tile ranges; differentiable with respect to ``packed``."""
+    tile ranges; differentiable with respect to ``packed`` (its backward
+    the ``grad_reduce`` reduction)."""
     num_aligned = sorted_gauss_idx.shape[0] + num_tiles * chunk
     aligned_start, src, within = aligned_relayout(tile_start, tile_count, chunk, num_aligned)
     aligned_idx = torch.where(within, sorted_gauss_idx[src].long(), 0)
-    return _GatherRecords.apply(packed, aligned_idx, within), aligned_start
+    return _GatherRecords.apply(packed, aligned_idx, within, grad_reduce), aligned_start
 
 
 def rasterize_split(packed, sorted_gauss_idx, tile_start, tile_count, image_width,
                     image_height, tile_w, tile_h, *, chunk_size=128, alpha_clamp=0.99,
-                    transmittance_eps=1e-4, undo_denom_floor=1e-6) -> RenderOutputs:
+                    transmittance_eps=1e-4, undo_denom_floor=1e-6,
+                    grad_reduce="segsum") -> RenderOutputs:
     """The split layout's rasterizer (the JAX package's
     ``rasterize_pallas``): packed [N, 11] (reference layout) and the binning
     -> image outputs.  The sorted pairs are laid out chunk-aligned
     (``num_aligned = max_pairs + num_tiles * chunk`` columns), the records
-    gathered there (``_GatherRecords``), then K1 forward and, when
-    ``packed`` requires grad, K7 backward."""
+    gathered there (``_GatherRecords``, whose backward is the
+    ``grad_reduce`` reduction), then K1 forward and, when ``packed``
+    requires grad, K7 backward."""
     num_tiles = -(-image_width // tile_w) * -(-image_height // tile_h)
     records_cm, aligned_start = split_records(packed, sorted_gauss_idx, tile_start,
-                                              tile_count, num_tiles, chunk_size)
+                                              tile_count, num_tiles, chunk_size, grad_reduce)
     return rasterize_staged(records_cm, aligned_start, tile_count, image_width,
                             image_height, tile_w, tile_h, chunk_size=chunk_size,
                             alpha_clamp=alpha_clamp, transmittance_eps=transmittance_eps,

@@ -18,9 +18,9 @@ Payload carriage, as the JAX package runs by default:
 
 Training staging is a ``torch.autograd.Function`` around the same index
 machinery: the forward also keeps the gaussian id of every record column,
-and the backward is the per-Gaussian segment sum of the record cotangent
-(``rasterize_cuda.reduce_record_cotangent``, kernel K4); the sort is never
-differentiated.
+and the backward is the per-Gaussian reduction of the record cotangent
+(``rasterize_cuda.reduce_record_cotangent``: kernel K4, or the scatter-add
+with ``grad_reduce="scatter"``); the sort is never differentiated.
 
 The (tile, depth) sort is one ``torch.sort(stable=True)`` of the int64 key
 ``tile << 32 | f32_bits(depth)``.  It gives exactly the permutation of the
@@ -50,6 +50,8 @@ class StagingStatic(NamedTuple):
     tile_h: int
     max_pairs: int
     chunk: int  # aligned layout's ownership quantum; sorted buffers' zero tail
+    # The training stagings' backward: "segsum" (gid sort + K4) or "scatter".
+    grad_reduce: str = "segsum"
 
 
 class SortedPairs(NamedTuple):
@@ -248,15 +250,15 @@ def _stage_impl(st: StagingStatic, packed, rect_min, rect_max, radii, depths):
 class _Stage(torch.autograd.Function):
     """Training staging, sorted (``_stage_train_impl``) or aligned
     (``_stage_impl``).  Forward: the staging; backward:
-    ``rasterize_cuda.reduce_record_cotangent`` over the per-column gaussian
-    ids.  Only ``packed`` is differentiable: rects, radii and depths are
-    staging machinery."""
+    ``rasterize_cuda.reduce_record_cotangent`` (``st.grad_reduce``) over the
+    per-column gaussian ids.  Only ``packed`` is differentiable: rects,
+    radii and depths are staging machinery."""
 
     @staticmethod
     def forward(ctx, impl, st, packed, rect_min, rect_max, radii, depths):
         staged, gid = impl(st, packed.detach(), rect_min, rect_max, radii, depths)
         ctx.save_for_backward(gid)
-        ctx.num_rec = packed.shape[0]
+        ctx.num_rec, ctx.grad_reduce = packed.shape[0], st.grad_reduce
         ctx.mark_non_differentiable(*staged[1:])
         return tuple(staged)
 
@@ -264,7 +266,7 @@ class _Stage(torch.autograd.Function):
     def backward(ctx, g_records, *_):
         (gid,) = ctx.saved_tensors
         d_packed = rasterize_cuda.reduce_record_cotangent(g_records.contiguous(), gid,
-                                                          ctx.num_rec)
+                                                          ctx.num_rec, ctx.grad_reduce)
         return None, None, d_packed, None, None, None, None
 
 

@@ -154,8 +154,9 @@ def check_band_split(image_height: int, tile_parallel: int, tile_h: int) -> int:
 
 def make_dp_train_step(cfg: TrainConfig, image_width: int, image_height: int,
                        sh_degree: int, total_iterations: int, mesh: Mesh,
-                       batched_views: bool = False) -> Callable:
-    """The data- and tile-parallel train step of this rank.
+                       batched_views: bool = False, backend: Optional[str] = None) -> Callable:
+    """The data- and tile-parallel train step of this rank, rendering with
+    ``backend`` (``render``'s; None: ``cfg.raster.backend``).
 
     ``train_step(state, views, view_idx) -> (state, metrics, image)``:
     ``views`` holds every view's tensors (each rank the same), and
@@ -178,7 +179,7 @@ def make_dp_train_step(cfg: TrainConfig, image_width: int, image_height: int,
             return views[k][view_idx]
 
         leaves, active, out, aux = trainer_mod.render_view(
-            cfg, state, take, image_width, band_h, sh_degree, **band)
+            cfg, state, take, image_width, band_h, sh_degree, backend, **band)
         # The loss of the full image, identical on every tile rank: SSIM at
         # the band seams sees real rows.
         color = gather_bands(out.color, mesh)

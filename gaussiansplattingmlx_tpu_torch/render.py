@@ -16,6 +16,12 @@ the JAX package's ``render.py``).
   (owner ranks by K5, one (tile, depth) sort of the gaussian ids), the
   chunk-aligned record gather whose backward is K4, K1 forward and K7
   backward (``rasterize_cuda.rasterize_split``).
+
+``grad_reduce="scatter"`` replaces K4 in the backward of every layout by a
+scatter-add (``rasterize_cuda.scatter_reduce``).  ``backend="reference"``
+(whatever the layout, and with ``inference`` or without) bins with
+``binning.bin_gaussians`` and composites with the oracle
+(``rasterize_ref.rasterize_reference``), differentiable by autograd.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from .config import RasterizerConfig
+from .config import SELECTORS, RasterizerConfig
 from .ops import binning as binning_mod
 from .ops import projection, rasterize_cuda, rasterize_ref
 from .ops import staging as staging_mod
@@ -36,6 +42,22 @@ class RenderAux(NamedTuple):
     num_pairs: torch.Tensor  # [] pairs binned
     overflow_gaussians: torch.Tensor  # [] gaussians losing pairs to the budget
     overflow_pairs: torch.Tensor  # [] pairs dropped by the budget
+    means2d: torch.Tensor  # [N, 2] the projection's (full-image) screen means
+    tile_depth_mean: torch.Tensor  # [] mean pairs a tile
+    tile_depth_max: torch.Tensor  # [] most pairs in a tile
+
+
+def resolve_backend(backend: str) -> str:
+    """"reference" (the oracle) or "kernels" (the port's kernels on CUDA
+    tensors, their plain versions on CPU tensors: "auto", "pallas" and
+    "pallas_interpret").  The JAX package's "auto" means the oracle off a
+    TPU; the port's never does, because off the card the kernels' plain
+    versions run (the oracle is chosen by name).  Unknown names raise
+    ``ValueError``."""
+    if backend not in SELECTORS["backend"]:
+        raise ValueError(f"unknown rasterizer backend {backend!r}: expected one of "
+                         f"{SELECTORS['backend']}")
+    return "reference" if backend == "reference" else "kernels"
 
 
 def band_window(p: projection.ProjectionOutputs, image_height: int, pixel_y_offset=None):
@@ -77,9 +99,11 @@ def render(
     full_image_height: int | None = None,
     active: torch.Tensor | None = None,
     inference: bool = False,
+    backend: str | None = None,
 ):
     """Render one view on the device of ``means3d``.  ``active`` [N]
-    (optional) culls rows with active <= 0 in the projection.
+    (optional) culls rows with active <= 0 in the projection; ``backend``
+    (None: ``raster_cfg.backend``) names the rasterizer.
 
     For the pixel-band split (``parallel/sharding.py``), ``image_height`` is
     the band's height, ``full_image_height`` the camera's full image height
@@ -89,6 +113,7 @@ def render(
     Returns (RenderOutputs with the background applied to color, RenderAux).
     """
     cfg = raster_cfg
+    backend = resolve_backend(backend if backend is not None else cfg.backend)
     proj_height = full_image_height if full_image_height is not None else image_height
     grad_ctx = torch.no_grad() if inference else contextlib.nullcontext()
     with grad_ctx:
@@ -110,14 +135,22 @@ def render(
         common = dict(chunk_size=cfg.chunk_size, alpha_clamp=cfg.alpha_clamp,
                       transmittance_eps=cfg.transmittance_eps,
                       undo_denom_floor=cfg.undo_denom_floor)
-        if cfg.staging == "split":
+        if backend == "reference" or cfg.staging == "split":
             staged = binning_mod.bin_gaussians(
                 rect_min, rect_max, p.radii, p.depths, image_width, image_height,
                 cfg.tile_w, cfg.tile_h, cfg.max_pairs,
             )
+        if backend == "reference":
+            out = rasterize_ref.rasterize_reference(
+                packed, staged.sorted_gauss_idx, staged.sorted_tile_id,
+                image_width, image_height, cfg.tile_w, cfg.tile_h,
+                alpha_clamp=cfg.alpha_clamp, transmittance_eps=cfg.transmittance_eps,
+            )
+        elif cfg.staging == "split":
             out = rasterize_cuda.rasterize_split(
                 packed, staged.sorted_gauss_idx, staged.tile_start, staged.tile_count,
-                image_width, image_height, cfg.tile_w, cfg.tile_h, **common,
+                image_width, image_height, cfg.tile_w, cfg.tile_h,
+                grad_reduce=cfg.grad_reduce, **common,
             )
         else:
             sst = staging_mod.StagingStatic(
@@ -127,6 +160,7 @@ def render(
                 tile_h=cfg.tile_h,
                 max_pairs=cfg.max_pairs,
                 chunk=cfg.chunk_size,
+                grad_reduce=cfg.grad_reduce,
             )
             geom = (sst, packed, rect_min, rect_max, p.radii, p.depths)
             if inference:
@@ -150,6 +184,9 @@ def render(
         num_pairs=staged.num_pairs,
         overflow_gaussians=staged.overflow_gaussians,
         overflow_pairs=staged.overflow_pairs,
+        means2d=p.means2d,
+        tile_depth_mean=torch.mean(staged.tile_count.to(torch.float32)),
+        tile_depth_max=torch.max(staged.tile_count),
     )
     return out, aux
 
@@ -166,8 +203,10 @@ def render_many(
     raster_cfg: RasterizerConfig = RasterizerConfig(),
     white_background: bool = False,
     inference: bool = True,
+    backend: str | None = None,
 ):
-    """Render a batch of cameras of one model, one after another.
+    """Render a batch of cameras of one model, one after another
+    (``backend`` as ``render``'s).
 
     Returns (colors [B,H,W,3], depths [B,H,W], num_pairs [B],
     overflow_pairs [B])."""
@@ -179,7 +218,7 @@ def render_many(
             fov_xs[b], fov_ys[b], focal_xs[b], focal_ys[b],
             image_width, image_height, sh_degree,
             raster_cfg=raster_cfg, white_background=white_background,
-            inference=inference,
+            inference=inference, backend=backend,
         )
         colors.append(out.color)
         depths.append(out.depth)

@@ -22,7 +22,7 @@ import torch
 from .config import RasterizerConfig
 from .data import ply as ply_mod
 from .models.gaussians import activations, params_from_numpy
-from .render import render, render_many
+from .render import render, render_many, resolve_backend
 from .utils.camera import Camera
 from .utils.gif import write_gif
 from .utils.png import write_png
@@ -42,6 +42,10 @@ def parse_args(argv=None):
     p.add_argument("--radius", type=float, default=4.0)
     p.add_argument("--elevation", type=float, default=0.2)
     p.add_argument("--white-background", action="store_true")
+    p.add_argument("--backend", default=None,
+                   help="rasterizer backend: auto | pallas (the port's kernels "
+                        "on CUDA) | reference (the oracle rasterizer: "
+                        "O(pixels x pairs), small renders only)")
     p.add_argument("--max-pairs", type=int, default=None)
     p.add_argument("--tile", type=int, default=None)
     p.add_argument("--depth", action="store_true", help="also save depth maps")
@@ -102,6 +106,8 @@ def _sync(device: torch.device) -> None:
 def main(argv=None) -> CliResult:
     args = parse_args(argv)
     device = _resolve_device(args.device)
+    if args.backend is not None:
+        resolve_backend(args.backend)  # an unknown name raises before any work
 
     g = ply_mod.read_gaussian_ply(args.ply)
     n = g.xyz.shape[0]
@@ -138,7 +144,7 @@ def main(argv=None) -> CliResult:
             means, shs, opacity, scales, rots, view, proj, center,
             fovx, fovy, fx, fy, args.width, args.height, sh_degree,
             raster_cfg=cfg, white_background=args.white_background,
-            inference=True,
+            inference=True, backend=args.backend,
         )
 
     def render_checked(cam):
@@ -213,6 +219,7 @@ def main(argv=None) -> CliResult:
                     means, shs, opacity, scales, rots, view, proj, center,
                     fovx, fovy, fx, fy, args.width, args.height, sh_degree,
                     raster_cfg=cfg, white_background=args.white_background,
+                    backend=args.backend,
                 )
 
             run(batches[0])  # warm-up

@@ -140,11 +140,12 @@ def stack_views_host(data: TrainData, view_ids) -> Dict[str, np.ndarray]:
 
 
 def render_view(cfg: TrainConfig, state: TrainState, take: Callable, image_width: int,
-                image_height: int, sh_degree: int, **band):
+                image_height: int, sh_degree: int, backend: Optional[str] = None, **band):
     """Activations (with the SH warm-up) and the training render of one view,
     or of one pixel band of it (``band``: ``render``'s ``pixel_y_offset``
-    and ``full_image_height``).  ``take(key)`` reads the view's tensors.
-    Returns (parameter leaves, active mask, RenderOutputs, RenderAux)."""
+    and ``full_image_height``), with ``render``'s ``backend``.  ``take(key)``
+    reads the view's tensors.  Returns (parameter leaves, active mask,
+    RenderOutputs, RenderAux)."""
     leaves = state.params.tensors()
     active = gaussians.active_mask(state.params.capacity, state.num_active)
     params = gaussians.apply_sh_warmup(leaves, state.step, int(cfg.model.sh_warmup_interval),
@@ -156,7 +157,7 @@ def render_view(cfg: TrainConfig, state: TrainState, take: Callable, image_width
         take("fov_x"), take("fov_y"), take("focal_x"), take("focal_y"),
         image_width, image_height, sh_degree,
         raster_cfg=cfg.raster, white_background=cfg.white_background,
-        active=active, **band,
+        active=active, backend=backend, **band,
     )
     return leaves, active, out, aux
 
@@ -211,8 +212,10 @@ def grad_coverage(active: torch.Tensor, grad_accum: torch.Tensor,
 
 
 def make_train_step(cfg: TrainConfig, image_width: int, image_height: int,
-                    sh_degree: int, total_iterations: int) -> Callable:
-    """Build ``train_step(state, views, view_idx) -> (state, metrics, color)``.
+                    sh_degree: int, total_iterations: int,
+                    backend: Optional[str] = None) -> Callable:
+    """Build ``train_step(state, views, view_idx) -> (state, metrics, color)``,
+    rendering with ``backend`` (None: ``cfg.raster.backend``).
 
     The step updates the parameters and Adam moments in place and returns
     the state with its counters advanced; ``metrics`` are 0-d device tensors
@@ -223,7 +226,7 @@ def make_train_step(cfg: TrainConfig, image_width: int, image_height: int,
             return views[k][view_idx]
 
         leaves, active, out, aux = render_view(cfg, state, take, image_width, image_height,
-                                               sh_degree)
+                                               sh_degree, backend)
         loss, parts = view_loss(cfg, out.color, out.depth, take)
         grads = param_grads(loss, leaves)
 
@@ -382,8 +385,11 @@ class Trainer:
 
     def __init__(self, config: TrainConfig, data: TrainData,
                  point_cloud: PointCloud, device="cuda", mesh=None,
-                 batched_views: Optional[bool] = None):
-        """``mesh`` (``parallel.sharding.Mesh``): train this rank's part of the
+                 batched_views: Optional[bool] = None, backend: Optional[str] = None):
+        """``backend``: the rasterizer of every step (``render``'s; None:
+        ``config.raster.backend``).
+
+        ``mesh`` (``parallel.sharding.Mesh``): train this rank's part of the
         data- and tile-parallel step, ``mesh.shape["data"]`` views a step.
         Without one, the Trainer builds the mesh from ``config.parallel``
         when that asks for more than one rank or a process group of several
@@ -410,6 +416,7 @@ class Trainer:
                 mesh = sharding.make_mesh(dp, par.tile_parallel)
         self.mesh = mesh
         self.cfg = config
+        self.backend = backend
         self.data = data
         self.device = resolve_device(device)
         self.rng = np.random.default_rng(config.seed)
@@ -483,10 +490,11 @@ class Trainer:
         if self.mesh is not None:
             self.train_step = sharding.make_dp_train_step(
                 cfg, data.width, data.height, cfg.model.sh_degree, cfg.iterations,
-                self.mesh, batched_views=self.batched_views)
+                self.mesh, batched_views=self.batched_views, backend=self.backend)
         else:
             self.train_step = make_train_step(
-                cfg, data.width, data.height, cfg.model.sh_degree, cfg.iterations)
+                cfg, data.width, data.height, cfg.model.sh_degree, cfg.iterations,
+                self.backend)
 
     def _build_local_store(self) -> None:
         """Batched views: each data shard samples from a contiguous block of

@@ -38,8 +38,9 @@ import torch
 import torch.distributed as dist
 
 from .config import ParallelConfig, TrainConfig
-from .data import blender, colmap, nerfstudio
+from .data import blender, colmap, fetch, nerfstudio
 from .parallel import launch, multihost, sharding
+from .render import resolve_backend
 from .train.trainer import Trainer
 from .utils.camera import spatial_lr_scale_auto
 
@@ -57,8 +58,8 @@ def parse_args(argv=None):
                    required=True)
     p.add_argument("--root", required=True, help="dataset root directory")
     p.add_argument("--fetch-demo", choices=["lego", "chair"], default=None,
-                   help="download this demo scene into --root first (needs "
-                        "network access; not ported)")
+                   help="download this demo scene into --root first, unless it "
+                        "is there (needs network access)")
     p.add_argument("--output", default="outputs/run", help="output directory")
     p.add_argument("--iterations", type=int, default=30000)
     p.add_argument("--resize-factor", type=float, default=0.5)
@@ -70,8 +71,9 @@ def parse_args(argv=None):
     p.add_argument("--white-background", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--backend", default=None,
-                   help="rasterizer backend: pallas | auto (the port's kernels "
-                        "on CUDA, their plain versions on the CPU)")
+                   help="rasterizer backend: auto | pallas (the port's kernels "
+                        "on CUDA, their plain versions on the CPU) | reference "
+                        "(the oracle rasterizer, plain torch)")
     p.add_argument("--config", default=None, help="TrainConfig JSON file")
     p.add_argument("--resume", default=None, help="checkpoint .npz to resume")
     p.add_argument("--max-gaussians", type=int, default=1_000_000)
@@ -122,19 +124,22 @@ class TrainResult:
     ranks: list = dataclasses.field(default_factory=list)
 
 
-def check_ported(args) -> None:
-    """Flags whose code the port does not have raise at once, naming the
-    ROADMAP.md item that holds it."""
-    if args.fetch_demo:
-        raise NotImplementedError(
-            "--fetch-demo downloads over the network and is not ported "
-            "(ROADMAP.md queue A.5)")
+def fetch_demo(args) -> None:
+    """``--fetch-demo``: download the demo scene into ``--root`` unless it
+    is there (the JAX CLI's check of the scene's format first)."""
+    fmt, fetcher = fetch.DEMOS[args.fetch_demo]
+    if fmt != args.dataset:
+        raise ValueError(f"--fetch-demo {args.fetch_demo} is a {fmt} scene; "
+                         f"pass --dataset {fmt}")
+    print(f"fetching demo scene {args.fetch_demo!r} into {args.root} ...", flush=True)
+    fetcher(args.root)
 
 
 def build_config(args) -> TrainConfig:
     """The JAX CLI's order: the --config file (or the defaults), then each
-    flag that was given.  A --backend the port has not ported raises
-    (RasterizerConfig)."""
+    flag that was given.  ``--backend`` goes to the Trainer, as in the JAX
+    CLI, and is also written into the config's ``raster.backend``, so that
+    config.json and the checkpoints record the rasterizer the run used."""
     cfg = TrainConfig.from_json(Path(args.config).read_text()) if args.config else TrainConfig()
     loss_cfg = cfg.loss
     if args.lambda_depth is not None:
@@ -188,8 +193,13 @@ def ranks_to_start(par: ParallelConfig, device) -> int:
 def main(argv=None) -> TrainResult:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    check_ported(args)
+    if args.backend is not None:
+        resolve_backend(args.backend)  # an unknown name raises before any work
     cfg = build_config(args)
+    if args.fetch_demo and not dist.is_initialized():
+        # Before any rank starts; under torchrun each process fetches, as
+        # each process of the JAX CLI does.
+        fetch_demo(args)
     if args.multihost or "WORLD_SIZE" in os.environ:
         # Under torchrun: join its group (a no-op without its variables, or
         # inside ranks this function started).
@@ -252,7 +262,7 @@ def train(args, cfg: TrainConfig) -> TrainResult:
         (out_dir / "config.json").write_text(cfg.to_json())
 
     device = launch.rank_device(args.device) if ranked else args.device
-    trainer = Trainer(cfg, data, pcd, device=device)
+    trainer = Trainer(cfg, data, pcd, device=device, backend=args.backend)
     if trainer.mesh is not None:
         say(f"mesh {trainer.mesh.shape} over {len(trainer.mesh.ranks)} ranks, views "
             f"{'batched' if trainer.batched_views else 'replicated'}", flush=True)

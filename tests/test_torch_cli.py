@@ -2,13 +2,15 @@
 eval.py (run as subprocesses with the reference backend) on
 tests/test_cli.py's Blender fixture and config: the same files, the same
 metrics.csv columns, the logged losses and PSNRs within the step-parity
-tolerance, the eval metrics within stated tolerances; a bit-exact resume;
-the flags the port has not ported; and that no module of the port imports
-JAX, the JAX package, matplotlib, or Pillow outside the JPEG branch."""
+tolerance, the eval metrics within stated tolerances, also with the port's
+--backend reference; a bit-exact resume; the flags' error paths; and that
+no module of the port imports JAX, the JAX package, matplotlib, or Pillow
+outside the JPEG branch."""
 
 import csv
 import json
 import re
+import urllib.error
 from pathlib import Path
 
 import numpy as np
@@ -18,6 +20,8 @@ import torch
 from test_cli import CONFIG, run_cli, write_scene
 
 from gaussiansplattingmlx_tpu_torch import eval_cli, train_cli
+from gaussiansplattingmlx_tpu_torch.data import fetch
+from gaussiansplattingmlx_tpu_torch.data.fetch import FetchError
 from gaussiansplattingmlx_tpu_torch.utils.png import read_png
 
 PORT = Path(__file__).resolve().parents[1] / "gaussiansplattingmlx_tpu_torch"
@@ -99,46 +103,98 @@ def test_train_cli_resume_is_bit_exact(runs, tmp_path, capsys):
     assert [r["iteration"] for r in rows] == [str(ITERS)]
 
 
-def test_eval_cli_matches_jax(runs, tmp_path, capsys):
+def test_train_cli_reference_backend_matches_jax(runs, tmp_path, capsys):
+    """train_cli --backend reference (the oracle) against train.py with the
+    reference backend: the same files and metrics columns, the logged losses
+    and PSNRs within the step-parity tolerance."""
+    scene, jax_out, _, port_cfg, _ = runs
+    res = train_cli.main(train_args(scene, tmp_path, port_cfg, "--device", "cpu",
+                                    "--backend", "reference"))
+    assert res.trainer.backend == "reference"
+    # The run records the rasterizer it used, so a re-run from config.json
+    # or a resume keeps it.
+    assert json.loads((tmp_path / "config.json").read_text())["raster"]["backend"] == "reference"
+    with np.load(tmp_path / f"ckpt_{ITERS}.npz") as ckpt:
+        assert json.loads(bytes(ckpt["config_json"]))["raster"]["backend"] == "reference"
+    assert listing(tmp_path) == listing(jax_out)
+    jax_header, jax_rows = read_csv(jax_out / "metrics.csv")
+    port_header, port_rows = read_csv(tmp_path / "metrics.csv")
+    assert port_header == jax_header
+    assert [r["iteration"] for r in port_rows] == [r["iteration"] for r in jax_rows]
+    for p, j in zip(port_rows, jax_rows):
+        for key in ("loss", "psnr"):
+            np.testing.assert_allclose(float(p[key]), float(j[key]), rtol=LOSS_RTOL)
+
+
+@pytest.fixture(scope="module")
+def jax_eval(runs):
+    """eval.py --backend reference on the port's final PLY: (its argv
+    without the backend, its JSON metrics)."""
     scene, _, port_out, _, _ = runs
     ply = port_out / f"iteration_{ITERS}.ply"
     args = ["--dataset", "blender", "--root", str(scene), "--ply", str(ply),
             "--resize-factor", "1.0", "--max-pairs", "8192"]
     r = run_cli("eval.py", *args, "--backend", "reference")
     assert r.returncode == 0, r.stderr[-3000:]
-    want = json.loads(r.stdout.strip().splitlines()[-1])
-    res = eval_cli.main([*args, "--device", "cpu", "--save-renders", str(tmp_path)])
-    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert got == res.metrics
+    return args, json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def check_eval_metrics(got, want):
     assert sorted(got) == sorted(want)
     assert got["views"] == want["views"] == 3 and got["view_ids"] == want["view_ids"]
     assert abs(got["psnr_mean"] - want["psnr_mean"]) <= PSNR_ATOL_DB
     assert abs(got["ssim_mean"] - want["ssim_mean"]) <= SSIM_ATOL
     assert abs(got["l1_mean"] - want["l1_mean"]) <= L1_ATOL
+
+
+def test_eval_cli_matches_jax(jax_eval, tmp_path, capsys):
+    args, want = jax_eval
+    res = eval_cli.main([*args, "--device", "cpu", "--save-renders", str(tmp_path)])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got == res.metrics
+    check_eval_metrics(got, want)
     assert res.overflow_pairs == [0, 0, 0] and all(n > 0 for n in res.num_pairs)
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "eval_000.png", "eval_001.png", "eval_002.png"]
     assert read_png(tmp_path / "eval_000.png").shape == (24, 32, 3)
 
 
+def test_eval_cli_reference_backend_matches_jax(jax_eval, capsys):
+    """eval_cli --backend reference against eval.py --backend reference."""
+    args, want = jax_eval
+    res = eval_cli.main([*args, "--device", "cpu", "--backend", "reference"])
+    check_eval_metrics(res.metrics, want)
+    assert res.overflow_pairs == [0, 0, 0] and all(n > 0 for n in res.num_pairs)
+
+
 @pytest.mark.parametrize("extra,error,match", [
-    pytest.param(["--fetch-demo", "lego"], NotImplementedError, "A.5", id="extra0-A.5"),
-    # The parallel flags (ROADMAP.md A.6) are ported; their error paths:
-    # torchrun's variables in part, and more ranks than the one card
-    # visible with a bare --device cuda.
+    # --fetch-demo without network access (the download fails here at once).
+    pytest.param(["--fetch-demo", "lego"], FetchError, "could not download", id="extra0-A.5"),
+    # The parallel flags: torchrun's variables in part, and more ranks than
+    # the one card visible with a bare --device cuda.
     pytest.param(["--multihost"], ValueError, "RANK.*torchrun", id="extra1-A.6"),
     pytest.param(["--data-parallel", "2", "--device", "cuda"], RuntimeError,
                  "2 ranks need 2 cards", id="extra2-A.6"),
     pytest.param(["--tile-parallel", "4", "--device", "cuda"], RuntimeError,
                  "4 ranks need 4 cards", id="extra3-A.6"),
-    pytest.param(["--backend", "reference"], NotImplementedError, "A.8", id="extra4-A.8"),
+    # A backend name that does not exist.
+    pytest.param(["--backend", "triton"], ValueError, "unknown rasterizer backend",
+                 id="extra4-A.8"),
 ])
 def test_train_cli_unported_flags_raise(tmp_path, monkeypatch, extra, error, match):
-    """Flags whose code the port lacks raise naming their ROADMAP.md item;
-    the parallel flags raise on what they cannot run.  Nothing is written."""
+    """Flags raise on what they cannot run, before anything is written.
+    (The ids name the ROADMAP.md items of the flags, which were unported
+    when the cases were written: --fetch-demo and --backend reference now
+    run, tests/test_torch_native_io.py and
+    test_train_cli_reference_backend_matches_jax.)"""
     if "--multihost" in extra:
         monkeypatch.setenv("WORLD_SIZE", "2")
         monkeypatch.delenv("RANK", raising=False)
+
+    def offline(url, timeout):
+        raise urllib.error.URLError("no network in the test")
+
+    monkeypatch.setattr(fetch.urllib.request, "urlopen", offline)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(error, match=match):
@@ -148,9 +204,15 @@ def test_train_cli_unported_flags_raise(tmp_path, monkeypatch, extra, error, mat
 
 
 def test_eval_cli_reference_backend_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.8"):
-        eval_cli.main(["--dataset", "colmap", "--root", str(tmp_path), "--ply", "x.ply",
-                       "--backend", "reference", "--device", "cpu"])
+    """eval_cli takes --backend reference (test_eval_cli_reference_backend_
+    matches_jax runs it); what raises here is the missing scene, and an
+    unknown backend raises before the scene is read."""
+    argv = ["--dataset", "colmap", "--root", str(tmp_path), "--ply", "x.ply",
+            "--device", "cpu"]
+    with pytest.raises(FileNotFoundError, match="cameras.bin"):
+        eval_cli.main([*argv, "--backend", "reference"])
+    with pytest.raises(ValueError, match="unknown rasterizer backend"):
+        eval_cli.main([*argv, "--backend", "triton"])
 
 
 @pytest.mark.parametrize("cli", ["train", "eval"])

@@ -144,7 +144,7 @@ def test_split_records_match_aligned_staging(seed):
     aligned_start, src, within = rasterize_cuda.aligned_relayout(
         b.tile_start, b.tile_count, CHUNK, num_aligned)
     aligned_idx = torch.where(within, b.sorted_gauss_idx[src].long(), 0)
-    split = rasterize_cuda._GatherRecords.apply(targs[0], aligned_idx, within)
+    split = rasterize_cuda._GatherRecords.apply(targs[0], aligned_idx, within, "segsum")
     assert_bit_equal(to_numpy(split[:11]), to_numpy(fused.records_cm[:11]), "records")
     assert_bit_equal(to_numpy(split[11:]), np.zeros((5, num_aligned), np.float32))
     assert_bit_equal(to_numpy(aligned_start), to_numpy(fused.aligned_start), "aligned_start")

@@ -73,26 +73,32 @@ def _carry(jstate, tmp_path, name="state.npz"):
     return trainer.state_from_numpy(np.load(tmp_path / name), "cpu")
 
 
-def test_train_steps_match_jax(tmp_path):
+def check_train_steps(tmp_path, backend, views=(0, 1, 0)):
+    """Steps of the port's make_train_step(backend=...) against the JAX
+    package's with the same backend ("pallas_interpret": the port's kernels'
+    plain versions against the JAX kernels in interpret mode), from one
+    state carried across, on ``views``: losses and metrics at rtol 1e-4,
+    the first step's parameters at rtol 1e-5 / atol 1e-7 where |g| >
+    1e-3 max|g|."""
     c2ws, images = _views()
     jcfg = jax_config.TrainConfig(
         iterations=ITERS, model=jax_config.ModelConfig(sh_degree=SH),
-        raster=jax_config.RasterizerConfig(**RASTER, backend="pallas_interpret"))
+        raster=jax_config.RasterizerConfig(**RASTER, backend=backend))
     tcfg = config.TrainConfig(iterations=ITERS, model=config.ModelConfig(sh_degree=SH),
                               raster=config.RasterizerConfig(**RASTER))
     jdata = JaxTrainData([JaxCamera.from_c2w(W, H, 60.0, 60.0, c) for c in c2ws], images)
     tdata = TrainData([Camera.from_c2w(W, H, 60.0, 60.0, c) for c in c2ws], images)
     jstate = _jax_state()
     tstate = _carry(jstate, tmp_path)
-    jstep = jax_trainer.make_train_step(jcfg, W, H, SH, ITERS, backend="pallas_interpret")
-    tstep = trainer.make_train_step(tcfg, W, H, SH, ITERS)
+    jstep = jax_trainer.make_train_step(jcfg, W, H, SH, ITERS, backend=backend)
+    tstep = trainer.make_train_step(tcfg, W, H, SH, ITERS, backend=backend)
     jviews, tviews = jax_trainer.stack_views(jdata), trainer.stack_views(tdata, "cpu")
     for k in jviews:
         np.testing.assert_array_equal(to_numpy(tviews[k]), np.asarray(jviews[k]), err_msg=k)
 
     before = {n: np.asarray(getattr(jstate.params, n)) for n in gaussians.PARAM_NAMES}
     lrs = gaussians.learning_rates(torch.zeros((), dtype=torch.int32), ITERS)
-    for step, view in enumerate([0, 1, 0]):
+    for step, view in enumerate(views):
         jstate, jm, _ = jstep(jstate, jviews, jnp.int32(view))
         tstate, tm, color = tstep(tstate, tviews, view)
         assert color.shape == (H, W, 3)
@@ -121,6 +127,10 @@ def test_train_steps_match_jax(tmp_path):
                 assert moved.any(), n
     np.testing.assert_allclose(to_numpy(tstate.grad_accum), np.asarray(jstate.grad_accum),
                                rtol=1e-3, atol=1e-6)
+
+
+def test_train_steps_match_jax(tmp_path):
+    check_train_steps(tmp_path, "pallas_interpret")
 
 
 def test_state_round_trips_through_jax_checkpoint(tmp_path):
