@@ -27,8 +27,20 @@ and checks each against its plain PyTorch version at the shapes of its path:
   buffers) and the layouts' losses held to the sorted run's; the kernels
   line times K1-K7 on those buffers, K1's and K2's serving and K4's tile-16
   numbers beside them;
+* the golden image: tests/test_golden.py's scene (120 Gaussians, SH2,
+  64x64) rendered by the kernels (K2, K1) and by the oracle, each held to
+  the committed tests/golden_scene.npz at that test's bars;
 * the split layout's serving path: ``render_many`` over 16 orbit frames of
   the bench scene with ``RasterizerConfig(staging="split")``;
+* the staging route above 2^24 slots (K5's ranks in place of K2):
+  ``render_cli.main`` with ``--max-pairs 33554432 --no-auto-pairs``; the
+  training workload's initial Gaussians at tile 16 from the busiest
+  800x800 orbit view (~14.4 M pairs) at 2^25 slots, bit-equal to the same
+  frame through K2 at 2^24; then the first probed square view size past
+  2^24 real pairs, rendered in the sorted layout and the split layout
+  (compared bit for bit, else at the JAX image bars), K1 and K5 checked
+  there against their plain versions, and one sorted training step (K5,
+  K1, K3, K4 once each), K1, K3 and K4 first checked on its buffers;
 * densify: from the sorted run's state after its 20 steps, the densify step
   (Adam reset) and the prune-only step on the card against the same steps
   on CPU copies with one draw made on the card (stats, gather map, noise
@@ -68,7 +80,10 @@ and checks each against its plain PyTorch version at the shapes of its path:
   ``sync_on`` over 3 default training steps, and ``trace()`` of one step,
   whose Chrome trace must name K1-K4's kernels;
 * the native COLMAP parsers (built with the host C++ compiler) against
-  the Python parsers on the vendored scene's ``sparse/``, bit for bit;
+  the Python parsers on the vendored scene's ``sparse/``, bit for bit; and
+  in a fresh process with no compiler (``CXX`` a missing file, an empty
+  ``PATH``, an empty build directory), the vendored scene loaded through
+  the Python parsers, equal to the library's load, with one stderr line;
 * data- and tile-parallel training (``parallel/``), its ranks started by
   ``parallel/launch.py`` on this one card over gloo (so their times are no
   scaling result): ``render()`` of the bench scene at tile 16 over one
@@ -240,6 +255,9 @@ PAR_STEP_VIEWS = (1, 4)
 PAR_STEPS = 20
 PAR_LOSS_WINDOW = 5
 PAR_DEVICE = "cuda:0"
+# The parallel runs' pair budget cap: up to four ranks share the one card
+# with this process, each holding buffers of its own.
+PAR_MAX_PAIRS = 2 ** 24
 CLI_PAR_STEPS = 600
 CLI_PAR_WRITES = {"checkpoint_interval": 300, "snapshot_interval": 300}
 CLI_PAR_RESUME = 300
@@ -265,6 +283,16 @@ PSNR_ATOL_DB, SSIM_ATOL, L1_ATOL = 0.01, 1e-4, 1e-5
 # The profiler phase: IntervalProfiler over PROFILE_STEPS training steps,
 # then one step under trace(), whose file must name K1-K4's kernels.
 PROFILE_STEPS = 3
+# The staging route above 2^24 slots (ops/staging.py: K5's int32 ranks in
+# place of K2's float32 slot values), on the training workload's initial
+# Gaussians at tile 16: the busiest orbit view at 800x800 (~14.4 M pairs)
+# under a 2^25-slot budget against the 2^24 one, then the first square view
+# size (the focal scaled with it) whose pairs pass 2^24 by WIDE_MARGIN,
+# rendered in the sorted and split layouts and trained one sorted step.
+WIDE_TILE = 16
+WIDE_BUDGET = 2 ** 25
+WIDE_SIZES = (864, 896, 928, 960, 1024, 1088, 1152, 1280, 1600)
+WIDE_MARGIN = 1.02
 TRACE_KERNELS = {"merge_gather": "merge_gather_kernel", "raster_fwd": "raster_fwd_kernel",
                  "raster_bwd": "raster_bwd_kernel", "segsum": "segsum_kernel"}
 
@@ -470,8 +498,9 @@ def check_merge(args, st, device):
 def check_fwd(fargs, what, timed=True):
     """K1 against its plain version on a record buffer ``fargs`` (raster_fwd's
     arguments): within the image tolerances, two launches bit-identical.
-    With ``timed``, returns the kernels line's entry, its bound from the
-    pixel-records this buffer makes K1 take."""
+    Returns the max abs err and the n_contrib mismatch; with ``timed``, the
+    kernels line's entry, its bound from the pixel-records this buffer makes
+    K1 take."""
     from gaussiansplattingmlx_tpu_torch.ops import rasterize_cuda
 
     got = rasterize_cuda.raster_fwd(*fargs)
@@ -493,7 +522,7 @@ def check_fwd(fargs, what, timed=True):
             f"bit-identical repeats")
     if not timed:
         print(line, flush=True)
-        return None
+        return {"max_abs_err": err, "n_contrib_mismatch": mismatch}
     times = kernel_ms(lambda: rasterize_cuda.raster_fwd(*fargs))
     plain_ms = cuda_ms(lambda: rasterize_cuda.raster_fwd_plain(*fargs), reps=3)
     taken = float(got[:, 5].sum())
@@ -502,8 +531,8 @@ def check_fwd(fargs, what, timed=True):
     print(f"{line}; kernel {times['ms']:.4f} ms (a call {times['call_ms']:.4f} ms), plain "
           f"{plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}, "
           f"{taken:.0f} pixel-records taken)", flush=True)
-    return {"max_abs_err": err, **times, "plain_ms": plain_ms, **lim, "library_ms": None,
-            "pixel_records": taken}
+    return {"max_abs_err": err, "n_contrib_mismatch": mismatch, **times, "plain_ms": plain_ms,
+            **lim, "library_ms": None, "pixel_records": taken}
 
 
 def check_raster(args, st):
@@ -780,8 +809,9 @@ def check_merge_ranks(cum, max_pairs, what):
 
 
 def serving_cumsum(args, st):
-    """The bench camera's compacted footprint cumsum at the serving budget,
-    the input of K5 on the split serving path."""
+    """The compacted footprint cumsum of ``args`` at ``st``'s budget: K5's
+    input (the bench camera's on the split serving path; the view past 2^24
+    pairs on the route above 2^24 slots)."""
     from gaussiansplattingmlx_tpu_torch.ops import binning
 
     _, rect_min, rect_max, radii, _ = args
@@ -1043,7 +1073,9 @@ def check_training_buffers(trainer, device, label="training buffers, first step"
     ``band``, one pixel band of it: ``first_step_geometry``) and the L1 +
     SSIM cotangent against its target; K1 and K3 also bit-identical over
     two launches.  Returns the kernels line's entries for K2, K1, K3 and K4,
-    timed on these buffers (the shapes their path gives them)."""
+    timed on these buffers (the shapes their path gives them).  Above
+    ``staging.K2_MAX_SLOTS`` the path merges through K5, not K2: K2 is
+    left out (its entry None), and K5 is checked by ``check_merge_ranks``."""
     from gaussiansplattingmlx_tpu_torch.ops import rasterize_cuda, staging
 
     cfg = trainer.cfg.raster
@@ -1054,9 +1086,11 @@ def check_training_buffers(trainer, device, label="training buffers, first step"
         target = target[band[1]:band[1] + band[0]]
     what = f"{label}, max_pairs {cfg.max_pairs}"
     with torch.no_grad():
-        e, tbl = staging.merge_table(st, *args)
-        merge = merge_gather_entry(e.cum_keep, tbl, st.max_pairs, what)
-        del e, tbl
+        merge = None
+        if st.max_pairs <= staging.K2_MAX_SLOTS:
+            e, tbl = staging.merge_table(st, *args)
+            merge = merge_gather_entry(e.cum_keep, tbl, st.max_pairs, what)
+            del e, tbl
         sp, gid = staging._stage_train_impl(st, *args)
     require(int(sp.overflow_pairs) == 0, "training buffers overflow")
     tile = cfg.tile_w
@@ -1842,14 +1876,14 @@ def run_parallel(ply_path: Path, tmp: Path, device, gpu: str) -> dict:
     D=2 x T=2 against D=2 x T=1, each then trained through Trainer.run;
     K1-K4 on a 400-row band buffer of the T=2 run.  Returns the kernels
     line's entries."""
-    from gaussiansplattingmlx_tpu_torch.ops import binning, merge_cuda
+    from gaussiansplattingmlx_tpu_torch.ops import binning
     from gaussiansplattingmlx_tpu_torch.parallel import launch, sharding
 
     data = orbit_targets(ply_path, device, PAR_VIEWS)
     check_band_render(ply_path, data, device)
     # The pair budget: twice the initial demand of the busiest view (the
-    # steps may grow the footprints), capped at the 2^24 slots that K2's
-    # float32 carriage holds exactly; no step may overflow.
+    # steps may grow the footprints), capped at PAR_MAX_PAIRS to hold down
+    # the memory of ranks that share one card; no step may overflow.
     probe = parallel_trainer({"ply": str(ply_path), "data": data, "steps": 1,
                               "budget": 2 ** 26}, device)
     peak = 0
@@ -1860,7 +1894,7 @@ def run_parallel(ply_path: Path, tmp: Path, device, gpu: str) -> dict:
                                      PAR_TILE, 512)
         peak = max(peak, int(e.num_pairs) + int(e.overflow_pairs))
         del args, e
-    budget = min(max(512, -(-2 * peak // 512) * 512), merge_cuda._F32_EXACT)
+    budget = min(max(512, -(-2 * peak // 512) * 512), PAR_MAX_PAIRS)
     del probe
     spec = {"ply": str(ply_path), "data": data, "budget": budget}
     reference = parallel_trainer({**spec, "steps": PAR_STEPS}, device)
@@ -2308,6 +2342,340 @@ def check_profiler(ply_path: Path, data, device, max_pairs: int, tmp: Path) -> N
           f"kernel time), naming {sorted(TRACE_KERNELS.values())} | {gpu_line()}", flush=True)
 
 
+def check_golden(device, counters, expect) -> dict:
+    """The golden scene (tests/golden_scene.npz: the JAX oracle's image of
+    tests/test_golden.py's scene, 120 Gaussians, SH2, 64x64) rendered on the
+    card by the kernels (K2 then K1, serving) and by the oracle, each held
+    to the file at tests/test_golden.py's bars.  Returns the launches."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_golden_scene import GOLDEN, golden_errors, render_golden
+
+    want = np.load(GOLDEN)
+    launches, parts = {}, []
+    for name, backend, inference, launched in (
+            ("kernels", "auto", True, dict(merge_gather=1, raster_fwd=1)),
+            ("reference", "reference", False, dict(merge_ranks=1))):
+        zero_counters(counters)
+        got = render_golden(device, backend, inference)
+        torch.cuda.synchronize()
+        launches[name] = {n: k.launches for n, k in counters.items()}
+        require(launches[name] == expect(**launched),
+                f"golden {name}: launches {launches[name]}")
+        err = golden_errors(got, want)
+        worst = max(err[f"{k}_excess"] for k in ("color", "depth", "alpha"))
+        require(worst <= 0 and err["ncon_mismatch"] < 0.002,
+                f"golden {name}: outside tests/test_golden.py's bars: {err}")
+        require(float(got["color"].std()) > 0.05, f"golden {name}: blank image")
+        parts.append(f"{name} (backend={backend!r}, inference={inference}): max abs err "
+                     f"color {err['color_max_abs_err']:.3e}, depth "
+                     f"{err['depth_max_abs_err']:.3e}, alpha {err['alpha_max_abs_err']:.3e}, "
+                     f"n_contrib mismatch {err['ncon_mismatch']:.4%}, launches "
+                     f"{ {k: v for k, v in launches[name].items() if v} }")
+    print(f"golden: tests/golden_scene.npz (120 gaussians SH2 64x64) within "
+          f"tests/test_golden.py's bars (color rtol 1e-4 / atol 1e-5, depth rtol 1e-4 / "
+          f"atol 1e-4, alpha rtol 1e-4 / atol 1e-5, n_contrib mismatch < 0.2%): "
+          + "; ".join(parts) + f" | {gpu_line()}", flush=True)
+    return launches
+
+
+def wide_view(size: int, view: int):
+    """Orbit view ``view`` of TRAIN_VIEWS at ``size`` x ``size`` pixels, the
+    bench focal scaled with it (the field of view of the 800x800 views)."""
+    from gaussiansplattingmlx_tpu_torch.render_cli import orbit_c2w
+    from gaussiansplattingmlx_tpu_torch.utils.camera import Camera
+
+    focal = FOCAL * size / WIDTH
+    return Camera.from_c2w(size, size, focal, focal,
+                           orbit_c2w(2 * np.pi * view / TRAIN_VIEWS, 4.0, 0.2))
+
+
+def cam_args(cam, device):
+    t = cam.tensors()
+    return [torch.as_tensor(np.asarray(t[k])).to(device)
+            for k in ("view", "proj", "camera_center", "fov_x", "fov_y", "focal_x",
+                      "focal_y")]
+
+
+def wide_geometry(acts, active, cam, device, size, max_pairs):
+    """The staging inputs of ``cam`` and their statics at tile WIDE_TILE
+    (``active``: the live rows, as the training step culls them)."""
+    from gaussiansplattingmlx_tpu_torch.ops import projection, rasterize_ref, staging
+
+    means, shs, opacity, scales, rots = acts
+    with torch.no_grad():
+        p = projection.project_gaussians(means, scales, rots, shs, *cam_args(cam, device),
+                                         size, size, SH_DEGREE, active=active)
+        packed = rasterize_ref.pack_gaussians(p.means2d, p.conic, p.colors, opacity,
+                                              p.depths)
+    st = staging.StagingStatic(size, size, WIDE_TILE, WIDE_TILE, max_pairs, 128)
+    return (packed, p.rect_min, p.rect_max, p.radii, p.depths), st
+
+
+def pair_demand(args, st) -> int:
+    from gaussiansplattingmlx_tpu_torch.ops import binning
+
+    with torch.no_grad():
+        e = binning.expand_pairs(args[1], args[2], args[3], st.image_width, st.image_height,
+                                 st.tile_w, st.tile_h, 512)
+    return int(e.num_pairs) + int(e.overflow_pairs)
+
+
+def wide_render(acts, active, cam, device, size, counters, expect, launched, **raster):
+    """One inference render at tile WIDE_TILE, counters set to 0 just before
+    and read just after: (outputs as numpy, aux, ms on CUDA events)."""
+    from gaussiansplattingmlx_tpu_torch.config import RasterizerConfig
+    from gaussiansplattingmlx_tpu_torch.render import render
+
+    cfg = RasterizerConfig(tile_w=WIDE_TILE, tile_h=WIDE_TILE, **raster)
+    zero_counters(counters)
+    with torch.no_grad():
+        (out, aux), ms = timed_once(lambda: render(*acts, *cam_args(cam, device), size, size,
+                                                   SH_DEGREE, raster_cfg=cfg, active=active,
+                                                   inference=True))
+    launches = {n: k.launches for n, k in counters.items()}
+    require(launches == expect(**launched), f"wide render {raster}: launches {launches}")
+    require(int(aux.overflow_pairs) == 0, f"wide render {raster}: overflow")
+    return ({k: getattr(out, k).cpu().numpy() for k in ("color", "depth", "alpha", "n_contrib")},
+            aux, ms)
+
+
+def same_image(a: dict, b: dict) -> bool:
+    return all(bits(a[k]).tobytes() == bits(b[k]).tobytes()
+               for k in ("color", "depth", "alpha", "n_contrib"))
+
+
+def run_wide(ply_path: Path, data, device, counters, expect, tmp: Path, gpu: str) -> dict:
+    """The staging route above 2^24 slots.  (1) Serving at a 2^25-slot
+    budget: render_cli --max-pairs 2^25 --no-auto-pairs on the bench PLY,
+    then the training workload's initial Gaussians at the busiest 800x800
+    orbit view, bit-equal to the same frame through K2 at 2^24; the route's
+    ms beside K2's.  (2) More than 2^24 real pairs: the first probed view
+    size past 2^24 pairs, rendered in the sorted layout (K5 route) and the
+    split layout (K5 + integer gathers), compared; K1 and K5 checked
+    against their plain versions there; one sorted training step (K5, K1,
+    K3, K4), K1, K3 and K4 checked against their plain versions and timed
+    on its buffers first.  Returns the kernels line's entries."""
+    from gaussiansplattingmlx_tpu_torch import render_cli
+    from gaussiansplattingmlx_tpu_torch.config import RasterizerConfig
+    from gaussiansplattingmlx_tpu_torch.data.dataset import TrainData
+    from gaussiansplattingmlx_tpu_torch.models import gaussians
+    from gaussiansplattingmlx_tpu_torch.ops import staging
+
+    launches = {}
+    # (1a) the user's entry point at a budget above 2^24
+    res, seconds, launches["render_cli_2e25"], mem = cli_run(render_cli, [
+        "--ply", str(ply_path), "--out", str(tmp / "wide_renders"), "--orbit", "1",
+        "--width", str(WIDTH), "--height", str(HEIGHT), "--focal", str(FOCAL),
+        "--max-pairs", str(WIDE_BUDGET), "--no-auto-pairs", "--device", device.type], counters)
+    require(res.max_pairs == WIDE_BUDGET and res.overflow_pairs == [0],
+            f"render_cli at 2^25: max_pairs {res.max_pairs}, overflow {res.overflow_pairs}")
+    require(launches["render_cli_2e25"] == expect(merge_ranks=1, raster_fwd=1),
+            f"render_cli at 2^25: launches {launches['render_cli_2e25']}")
+    c = res.colors[0]
+    require(bool(np.isfinite(c).all()) and float(c.std()) > 1e-3, "render_cli at 2^25: image")
+    print(f"wide render_cli: --max-pairs {WIDE_BUDGET} --no-auto-pairs, bench PLY "
+          f"{WIDTH}x{HEIGHT} tile 16, {res.num_pairs[0]} pairs, {seconds:.3f} s, peak memory "
+          f"{mem / 2**30:.3f} GiB, launches {launches['render_cli_2e25']} | {gpu}", flush=True)
+
+    # (1b) the same frame at 2^24 (K2) and 2^25 (K5 route) slots
+    trainer = make_trainer(ply_path, data, device, tile=WIDE_TILE)
+    state = trainer.state
+    with torch.no_grad():
+        active = gaussians.active_mask(state.params.capacity, state.num_active)
+        acts = [a.detach() for a in gaussians.activations(state.params, active)]
+    del trainer, state
+    demand = [pair_demand(*wide_geometry(acts, active, data.cameras[v], device, WIDTH, 512))
+              for v in range(TRAIN_VIEWS)]
+    view = int(np.argmax(demand))
+    cam = data.cameras[view]
+    k2, aux24, render24_ms = wide_render(acts, active, cam, device, WIDTH, counters, expect,
+                                         dict(merge_gather=1, raster_fwd=1),
+                                         max_pairs=staging.K2_MAX_SLOTS)
+    torch.cuda.reset_peak_memory_stats()
+    ranked, aux25, render25_ms = wide_render(acts, active, cam, device, WIDTH, counters, expect,
+                                             dict(merge_ranks=1, raster_fwd=1),
+                                             max_pairs=WIDE_BUDGET)
+    mem25 = torch.cuda.max_memory_allocated()
+    launches["serving_2e25"] = {n: k.launches for n, k in counters.items()}
+    npairs = int(aux25.num_pairs)
+    require(npairs == int(aux24.num_pairs) == demand[view], "2^24 / 2^25 pair counts differ")
+    require(same_image(ranked, k2), "the 2^25-slot frame differs from the 2^24-slot (K2) frame")
+    args, st25 = wide_geometry(acts, active, cam, device, WIDTH, WIDE_BUDGET)
+    st24 = st25._replace(max_pairs=staging.K2_MAX_SLOTS)
+    with torch.no_grad():
+        # The two routes at the same 2^24 budget: the same outputs, and
+        # their times side by side.
+        k2_out = staging._sorted_pairs(st24, *args)
+        ranked_out = staging._ranked_pairs(st24, *args)
+        require(all(bit_equal(a, b) for a, b in zip(ranked_out[:4], k2_out[:4])),
+                "the K5 route differs from the K2 route at 2^24 slots")
+        del k2_out, ranked_out
+        route25 = cuda_ms(lambda: staging._sorted_pairs(st25, *args))
+        route24 = cuda_ms(lambda: staging._sorted_pairs(st24, *args))
+        ranked24 = cuda_ms(lambda: staging._ranked_pairs(st24, *args))
+    del args
+    print(f"wide serving: training workload's initial {N_GAUSSIANS} gaussians SH{SH_DEGREE} "
+          f"{WIDTH}x{HEIGHT} tile {WIDE_TILE}, orbit view {view} ({npairs} pairs): the "
+          f"{WIDE_BUDGET}-slot frame (K5 route) bit-equal to the 2^24-slot frame (K2) in "
+          f"color, depth, alpha and n_contrib; _sorted_pairs {route25:.4f} ms at 2^25 (K5 "
+          f"route) vs {route24:.4f} ms at 2^24 (K2); at 2^24 the K5 route alone "
+          f"(_ranked_pairs) {ranked24:.4f} ms, its outputs bit-equal to K2's (CUDA events, "
+          f"median of 5); render "
+          f"{render25_ms:.3f} / {render24_ms:.3f} ms (one call); peak memory "
+          f"{mem25 / 2**30:.3f} GiB | {gpu}", flush=True)
+
+    # (2) a view with more than 2^24 real pairs
+    size = pairs = None
+    for s in WIDE_SIZES:
+        d = pair_demand(*wide_geometry(acts, active, wide_view(s, view), device, s, 512))
+        if d > WIDE_MARGIN * staging.K2_MAX_SLOTS:
+            size, pairs = s, d
+            break
+    require(size is not None, f"no probed view size passes 2^24 pairs: {WIDE_SIZES}")
+    budget = -(-pairs // 512) * 512 + 512
+    cam = wide_view(size, view)
+    torch.cuda.reset_peak_memory_stats()
+    sorted_img, aux_s, sorted_ms = wide_render(acts, active, cam, device, size, counters, expect,
+                                               dict(merge_ranks=1, raster_fwd=1),
+                                               max_pairs=budget)
+    launches["sorted_over_2e24"] = {n: k.launches for n, k in counters.items()}
+    split_img, aux_p, split_ms = wide_render(acts, active, cam, device, size, counters, expect,
+                                             dict(merge_ranks=1, raster_fwd=1),
+                                             max_pairs=budget, staging="split")
+    launches["split_over_2e24"] = {n: k.launches for n, k in counters.items()}
+    mem_render = torch.cuda.max_memory_allocated()
+    require(int(aux_s.num_pairs) == int(aux_p.num_pairs) == pairs > staging.K2_MAX_SLOTS,
+            f"over-2^24 pair counts {int(aux_s.num_pairs)} / {int(aux_p.num_pairs)} / {pairs}")
+    same = same_image(sorted_img, split_img)
+    if not same:
+        np.testing.assert_allclose(sorted_img["color"], split_img["color"], rtol=1e-4,
+                                   atol=1e-5)
+        mism = float(np.mean(sorted_img["n_contrib"] != split_img["n_contrib"]))
+        require(mism <= NCON_MISMATCH, f"over-2^24 n_contrib mismatch {mism}")
+    require(float(sorted_img["color"].std()) > 1e-3, "over-2^24 render: blank image")
+    args, st = wide_geometry(acts, active, cam, device, size, budget)
+    with torch.no_grad():
+        route_ms = cuda_ms(lambda: staging._sorted_pairs(st, *args))
+        sp = staging.stage_pairs_sorted(st, *args)
+    # K1 against its plain version on the serving buffer of this frame (the
+    # K5 route's records), and K5 on its cumsum.
+    grid = (-(-size // WIDE_TILE),) * 2
+    fwd_serving = check_fwd((sp.records_cm, sp.tile_start, sp.tile_count, *grid, WIDE_TILE,
+                             WIDE_TILE), f"{size}x{size} serving, over 2^24 pairs",
+                            timed=False)
+    del sp
+    cum = serving_cumsum(args, st)
+    ranks = check_merge_ranks(cum, budget, f"{size}x{size}, over 2^24 pairs")
+    del args, cum
+
+    # one sorted training step there, its target the bench PLY's own render
+    from gaussiansplattingmlx_tpu_torch.data import ply
+    ply_params = gaussians.params_from_numpy(ply.read_gaussian_ply(ply_path), device)
+    with torch.no_grad():
+        ply_acts = [a.detach() for a in gaussians.activations(ply_params)]
+    target, _, _ = wide_render(ply_acts, None, cam, device, size, counters, expect,
+                               dict(merge_gather=1, raster_fwd=1),
+                               max_pairs=RasterizerConfig().max_pairs_limit)
+    del ply_params, ply_acts, acts, active
+    wide = TrainData(cameras=[cam], images=target["color"][None].astype(np.float32))
+    trainer = make_trainer(ply_path, wide, device, tile=WIDE_TILE,
+                           train=dict(iterations=1, log_interval=1))
+    trainer.set_max_pairs(budget)
+    # K1, K3 and K4 against their plain versions on the step's own buffers
+    # (no K2 above 2^24 slots); timed there.
+    train_entries = check_training_buffers(trainer, device,
+                                           f"{size}x{size} trainer's buffers, first step")
+    torch.cuda.reset_peak_memory_stats()
+    log, final, seconds, launches["train_over_2e24"] = run_training(trainer, counters, steps=1)
+    mem_train = torch.cuda.max_memory_allocated()
+    require(len(log) == 1 and all(np.isfinite([log[0]["loss"], log[0]["l1"], log[0]["ssim"]])),
+            f"over-2^24 step: losses {log}")
+    require(int(final["num_pairs"]) == pairs and final["overflow_pairs_acc"] == 0,
+            f"over-2^24 step: pairs {final['num_pairs']}, overflow {final['overflow_pairs_acc']}")
+    require(final["grad_coverage"] > 0, "over-2^24 step: no gaussian received a gradient")
+    require(launches["train_over_2e24"] == expect(merge_ranks=1, raster_fwd=1, raster_bwd=1,
+                                                  segsum=1),
+            f"over-2^24 step: launches {launches['train_over_2e24']}")
+    del trainer
+    print(f"wide pairs: orbit view {view} at {size}x{size} (focal {FOCAL * size / WIDTH:.1f}), "
+          f"tile {WIDE_TILE}: {pairs} pairs (> 2^24 = {staging.K2_MAX_SLOTS}), max_pairs "
+          f"{budget}; sorted layout (K5 route) vs staging='split' (K5 + integer gathers): "
+          f"bit-equal {same}; render {sorted_ms:.3f} / {split_ms:.3f} ms (one call), "
+          f"_sorted_pairs {route_ms:.4f} ms (CUDA events, median of 5); peak memory "
+          f"{mem_render / 2**30:.3f} GiB over the renders; one sorted training step: loss "
+          f"{log[0]['loss']:.6f} (l1 {log[0]['l1']:.6f}, ssim {log[0]['ssim']:.6f}), "
+          f"grad_coverage {final['grad_coverage']:.4f}, {seconds:.3f} s, peak memory "
+          f"{mem_train / 2**30:.3f} GiB, launches {launches['train_over_2e24']} | {gpu}",
+          flush=True)
+    return {"launches": launches, "ranks": ranks, "fwd_serving": fwd_serving,
+            **{k: train_entries[k] for k in ("raster_fwd", "raster_bwd", "segsum")},
+            "numbers": {"serving_pairs": npairs, "serving_route_ms": route25,
+                        "serving_k2_route_ms": route24,
+                        "serving_k5_route_at_2e24_ms": ranked24, "wide_size": size,
+                        "wide_pairs": pairs, "wide_budget": budget,
+                        "wide_route_ms": route_ms, "wide_split_bit_equal": same,
+                        "wide_render_peak_gib": mem_render / 2**30,
+                        "wide_train_peak_gib": mem_train / 2**30}}
+
+
+def colmap_scene() -> dict:
+    """The vendored scene as ``load_colmap`` and ``read_points3d_bin``
+    give it (cameras as their tensors)."""
+    from gaussiansplattingmlx_tpu_torch.data import colmap
+
+    sparse = VENDOR / "sparse" / "0"
+    data, pcd = colmap.load_colmap(VENDOR)
+    return {"images": data.images, "alphas": data.alphas,
+            "cameras": [c.tensors() for c in data.cameras], "coords": pcd.coords,
+            "colors": pcd.colors,
+            "points": colmap.read_points3d_bin(sparse / "points3D.bin")}
+
+
+def check_no_compiler(tmp: Path) -> None:
+    """COLMAP loading where the native parser cannot be built: a fresh
+    process with CXX naming a missing file, a PATH that holds no compiler and
+    an empty build directory loads the vendored scene through the Python
+    parsers, equal to this process's load through the library, and says so
+    in exactly one stderr line."""
+    import pickle
+
+    from gaussiansplattingmlx_tpu_torch.data import native_io
+
+    require(native_io.library() is not None, "the native parser did not build here")
+    want = colmap_scene()
+    empty = tmp / "no_compiler_bin"
+    empty.mkdir()
+    out = tmp / "no_compiler.pkl"
+    code = "\n".join([
+        "import pickle, sys",
+        "from pathlib import Path",
+        f"sys.path.insert(0, {str(ROOT)!r})",
+        "import chip_smoke",
+        "from gaussiansplattingmlx_tpu_torch.data import native_io",
+        f"native_io.BUILD_DIR = Path({str(tmp / 'no_compiler_build')!r})",
+        "got = chip_smoke.colmap_scene()",
+        "got['library'] = native_io.library()",
+        f"Path({str(out)!r}).write_bytes(pickle.dumps(got))",
+    ])
+    env = {**os.environ, "CXX": str(tmp / "missing" / "c++"), "PATH": str(empty)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, f"no-compiler load failed:\n{proc.stdout}{proc.stderr}")
+    got = pickle.loads(out.read_bytes())
+    require(got.pop("library") is None, "the library loaded without a compiler")
+    require(same_value(got, want), "the Python parsers' scene differs from the library's")
+    lines = proc.stderr.splitlines()
+    require(len(lines) == 1 and lines[0].startswith("native COLMAP parser unavailable: no C++ "
+                                                    "compiler"),
+            f"no-compiler stderr: {proc.stderr!r}")
+    print(f"no compiler: CXX={env['CXX']} (missing), PATH={empty} (empty), a fresh build "
+          f"directory: load_colmap(tests/fixtures/vendor_scene) and read_points3d_bin equal "
+          f"the library's load bit for bit; stderr, one line: {lines[0]!r}; {seconds:.2f} s "
+          f"for the process | {gpu_line()}", flush=True)
+
+
 def check_native() -> None:
     """The native COLMAP parsers, built here with the host C++ compiler
     (the first use in this run), against the Python parsers on the
@@ -2315,7 +2683,7 @@ def check_native() -> None:
     from gaussiansplattingmlx_tpu_torch.data import colmap, native_io
 
     t0 = time.perf_counter()
-    native_io.library()
+    require(native_io.library() is not None, "the native COLMAP parser did not build")
     build_s = time.perf_counter() - t0
     sparse = VENDOR / "sparse" / "0"
     times = {}
@@ -2414,6 +2782,9 @@ def main() -> int:
         # 3b. the oracle (backend="reference") against the kernels' path
         ref_launches = check_reference(device, counters, expect)
         elapsed("reference")
+        # 3c. the golden image (tests/golden_scene.npz) through the kernels
+        # and the oracle
+        golden_launches = check_golden(device, counters, expect)
 
         # 4. the serving path through its entry point
         for k in counters.values():
@@ -2527,6 +2898,10 @@ def main() -> int:
               f"frames/s; the 4 serving views within tolerance of the fused render "
               f"(bit-equal: {same}); peak memory {split_mem / 2**30:.3f} GiB; launches "
               f"{split_launches} | {gpu}", flush=True)
+        # 8b. the staging route above 2^24 slots: a 2^25 budget, then more
+        # than 2^24 real pairs (sorted vs split, one training step)
+        wide = run_wide(ply_path, data, device, counters, expect, Path(tmp), gpu)
+        elapsed("wide")
 
         # 9. the densified training run (default layout) through Trainer.run
         dense_dir = Path(tmp) / "densified"
@@ -2582,6 +2957,8 @@ def main() -> int:
         # without Pillow
         check_native()
         check_loader()
+        # 11b. the loader where the native parser cannot be built
+        check_no_compiler(Path(tmp))
         # 12. the vendored scene through train_cli and eval_cli at the
         # default config, and a resume through train_cli
         cli_launches = run_vendor(Path(tmp), counters, expect, gpu)
@@ -2643,6 +3020,28 @@ def main() -> int:
                                      for layout, launched in scatter_runs.items()}
         entry["launches_reference"] = {"render": ref_launches[name],
                                        "eval_cli": cli_launches["vendor_eval_reference"][name]}
+    # K5 at the shape of the view with more than 2^24 pairs (its new launch
+    # site: the sorted staging above 2^24 slots), and every kernel's
+    # launches in the wide and golden phases.
+    merge_ranks.update({f"wide_{k}": wide["ranks"][k]
+                        for k in ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms",
+                                  "library_call_ms")})
+    merge_ranks.update(wide["numbers"])
+    # K1, K3 and K4 on the over-2^24 trainer's buffers (K1 also on that
+    # frame's serving buffer).
+    raster_fwd.update({f"wide_{k}": wide["raster_fwd"][k]
+                       for k in (*timed, "n_contrib_mismatch", "pixel_records")})
+    raster_fwd.update({f"wide_serving_{k}": v for k, v in wide["fwd_serving"].items()})
+    raster_bwd.update({f"wide_{k}": wide["raster_bwd"][k] for k in timed})
+    segsum.update({f"wide_{k}": wide["segsum"][k] for k in segsum_keys})
+    for name, entry in (("merge_gather", merge_gather), ("raster_fwd", raster_fwd),
+                        ("raster_bwd", raster_bwd), ("segsum", segsum),
+                        ("merge_ranks", merge_ranks), ("relayout", relayout),
+                        ("raster_bwd_aligned", raster_bwd_aligned)):
+        entry["launches_wide"] = {run: launched[name]
+                                  for run, launched in wide["launches"].items()}
+        entry["launches_golden"] = {run: launched[name]
+                                    for run, launched in golden_launches.items()}
     for name, entry in (("merge_gather", merge_gather), ("raster_fwd", raster_fwd),
                         ("raster_bwd", raster_bwd), ("segsum", segsum)):
         entry["launches_densified"] = dense_launches[name]

@@ -1,10 +1,14 @@
 """COLMAP binary dataset loader (the port's copy of the JAX package's
 ``data/colmap.py``).
 
-The three ``sparse/`` files are parsed by the native library
+``read_*_bin`` parse a ``sparse/`` file with the native library
 (``native_io``, built at first use), as the JAX package does when its
 library is built; ``read_*_bin_plain`` are the same parsers in numpy +
-struct, the plain versions the tests hold the native ones to.  Camera
+struct, the plain versions the tests hold the native ones to.
+``load_colmap`` sends only points3D.bin through the native parser
+(``read_points3d_bin``, which parses in Python where the library cannot be
+built): cameras.bin and images.bin parse as fast in Python
+(``scripts/torch_colmap_parse_bench.py``).  Camera
 models SIMPLE_PINHOLE, PINHOLE, SIMPLE_RADIAL and OPENCV (focal and center
 only; distortion is ignored); an image's pose quat(w, x, y, z) + t is
 world -> camera, converted to c2w = [R^T | -R^T t]; the points' tracks are
@@ -114,6 +118,8 @@ def read_images_bin_plain(path) -> List[dict]:
 
 def read_points3d_bin(path) -> Tuple[np.ndarray, np.ndarray]:
     """(xyz [N, 3] float32, rgb [N, 3] float32 in 0..255)."""
+    if native_io.library() is None:
+        return read_points3d_bin_plain(path)
     return native_io.parse_points3d(Path(path).read_bytes())
 
 
@@ -187,8 +193,8 @@ def load_colmap(
         sparse = root / "sparse"
     img_dir = Path(images_dir) if images_dir else root / "images"
 
-    cams = read_cameras_bin(sparse / "cameras.bin")
-    images = read_images_bin(sparse / "images.bin")
+    cams = read_cameras_bin_plain(sparse / "cameras.bin")
+    images = read_images_bin_plain(sparse / "images.bin")
     xyz, rgb = read_points3d_bin(sparse / "points3D.bin")
 
     cameras, rgbs, alphas = [], [], []

@@ -6,9 +6,14 @@ The library is built at first use with the host C++ compiler (``$CXX``,
 else ``c++`` or ``g++``) into the package's git-ignored ``_build/``, named
 by a hash of the source and flags, and loaded once per process.  Each
 builder writes a temporary file and renames it into place, so processes
-that build at once never load a partial library.  A failed build raises
-with the compiler's log; nothing falls back to the Python parsers, which
-stay in ``data/colmap.py`` as the plain versions the tests compare with.
+that build at once never load a partial library.
+
+Where it cannot be built -- no compiler is found, or ``_build/`` cannot be
+created or written -- ``library()`` returns None and says why in one line
+on stderr, once per process; the readers in ``data/colmap.py`` then parse
+in Python (``read_*_bin_plain``), as the JAX package does when its library
+is not built.  A library already in ``_build/`` loads without a compiler.
+A failed compile of the source still raises, with the compiler's log.
 """
 
 from __future__ import annotations
@@ -18,9 +23,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -31,27 +38,46 @@ CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
 
 _lock = threading.Lock()
 _lib = None
+# Why the library is unavailable in this process (None: not known to be).
+_missing: Optional[str] = None
+
+
+class Unavailable(RuntimeError):
+    """The library cannot be built here: no compiler, or no writable
+    ``_build/``."""
 
 
 def _compiler() -> str:
-    cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
-    if not cxx:
-        raise RuntimeError("no C++ compiler ($CXX, c++ or g++): the native COLMAP "
-                           "parser cannot be built")
-    return cxx
+    """The first of ``$CXX``, ``c++`` and ``g++`` that resolves to a file."""
+    for name in (os.environ.get("CXX"), "c++", "g++"):
+        path = shutil.which(name) if name else None
+        if path:
+            return path
+    raise Unavailable("no C++ compiler ($CXX, c++ or g++)")
+
+
+def _target() -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + SOURCE.read_bytes())
+    return BUILD_DIR / f"libgsplat_io_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the parser library unless ``_build/`` holds it; its path."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + SOURCE.read_bytes())
-    target = BUILD_DIR / f"libgsplat_io_{h.hexdigest()[:16]}.so"
+    """Compile the parser library unless ``_build/`` holds it; its path.
+    Raises ``Unavailable`` where it cannot be built, ``RuntimeError`` with
+    the compiler's log where the compile fails."""
+    target = _target()
     if target.exists():
         return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    cxx = _compiler()
+    try:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    except OSError as exc:
+        raise Unavailable(f"{BUILD_DIR} cannot be created or written "
+                          f"({exc.strerror or exc})") from exc
     os.close(fd)
     try:
-        cmd = [_compiler(), *CXX_FLAGS, str(SOURCE), "-o", tmp]
+        cmd = [cxx, *CXX_FLAGS, str(SOURCE), "-o", tmp]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"building the native COLMAP parser failed "
@@ -64,12 +90,20 @@ def build() -> Path:
     return target
 
 
-def library() -> ctypes.CDLL:
-    """The parser library, built and loaded on the first call."""
-    global _lib
+def library() -> Optional[ctypes.CDLL]:
+    """The parser library, built and loaded on the first call; None where
+    it cannot be built (the cause printed once on stderr)."""
+    global _lib, _missing
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+        if _lib is None and _missing is None:
+            try:
+                path = build()
+            except Unavailable as exc:
+                _missing = str(exc)
+                print(f"native COLMAP parser unavailable: {_missing}; parsing in Python",
+                      file=sys.stderr, flush=True)
+                return None
+            lib = ctypes.CDLL(str(path))
             lib.gsplat_parse_points3d.restype = ctypes.c_int64
             lib.gsplat_parse_points3d.argtypes = [
                 ctypes.c_char_p, ctypes.c_int64,
@@ -93,13 +127,20 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def _require() -> ctypes.CDLL:
+    lib = library()
+    if lib is None:
+        raise Unavailable(f"native COLMAP parser unavailable: {_missing}")
+    return lib
+
+
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
 
 
 def parse_points3d(data: bytes):
     """points3D.bin -> (xyz [n, 3] f32, rgb [n, 3] f32 in 0..255)."""
-    lib = library()
+    lib = _require()
     n = lib.gsplat_parse_points3d(data, len(data), None, None)
     if n < 0:
         raise ValueError("corrupt points3D.bin")
@@ -115,7 +156,7 @@ def parse_points3d(data: bytes):
 def parse_images(data: bytes):
     """images.bin -> list of dicts (image_id, qvec (w, x, y, z), tvec,
     camera_id, name), in file order."""
-    lib = library()
+    lib = _require()
     names_cap = ctypes.c_int64(0)
     n = lib.gsplat_parse_images(data, len(data), None, None, None, None, None, 0,
                                 ctypes.byref(names_cap))
@@ -143,7 +184,7 @@ def parse_images(data: bytes):
 def parse_cameras(data: bytes):
     """cameras.bin -> dict camera_id -> intrinsics dict (width, height, fx,
     fy, cx, cy)."""
-    lib = library()
+    lib = _require()
     cap = max(1, len(data) // 24)  # a camera takes at least 24 bytes
     cam_id = np.empty((cap,), np.int32)
     model_id = np.empty((cap,), np.int32)

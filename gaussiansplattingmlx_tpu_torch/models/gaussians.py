@@ -25,6 +25,7 @@ from torch import nn
 
 from ..data.ply import GaussianPly
 from ..utils import sh as sh_utils
+from ..utils import transforms
 
 PARAM_NAMES = ("xyz", "features_dc", "features_rest", "scales", "rotation", "opacity")
 
@@ -137,7 +138,7 @@ def create_from_points(
     points = np.asarray(points, dtype=np.float32)
     colors = np.asarray(colors, dtype=np.float32)
     n = points.shape[0]
-    k_coeffs = (sh_degree + 1) ** 2
+    k_coeffs = sh_utils.num_sh_coeffs(sh_degree)
     capacity = n if capacity is None else capacity
 
     dc = np.asarray(sh_utils.rgb2sh(colors), dtype=np.float32)[:, None, :]
@@ -180,7 +181,7 @@ def apply_sh_warmup(params: dict, step: torch.Tensor, warmup: int,
     ``warmup <= 0`` returns ``params`` unchanged."""
     if warmup <= 0:
         return params
-    n_rest = (sh_degree + 1) ** 2 - 1
+    n_rest = sh_utils.num_sh_coeffs(sh_degree) - 1
     rest = params["features_rest"]
     row_degree = torch.as_tensor(
         np.floor(np.sqrt(np.arange(1, n_rest + 1))).astype(np.float32)
@@ -219,3 +220,11 @@ def learning_rates(
         "rotation": scalar(lr_rotation),
         "opacity": scalar(lr_opacity),
     }
+
+
+def covariance(params, scaling_modifier: float = 1.0) -> torch.Tensor:
+    """Activated 3D covariance as a 6-vector (xx, xy, xz, yy, yz, zz) [C, 6];
+    ``params`` a ``GaussianParams`` or a dict keyed by ``PARAM_NAMES``."""
+    p = params if isinstance(params, Mapping) else params.tensors()
+    cov = transforms.build_cov3d(torch.exp(p["scales"]) * scaling_modifier, p["rotation"])
+    return transforms.strip_lowerdiag(cov)

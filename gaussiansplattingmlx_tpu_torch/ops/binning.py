@@ -165,6 +165,56 @@ class TileBinning(NamedTuple):
     pair_valid: torch.Tensor  # [max_pairs] bool
 
 
+class RankedSort(NamedTuple):
+    expansion: PairExpansion
+    sorted_rank: torch.Tensor  # [max_pairs] int32 compacted owner per pair (pad: n)
+    valid: torch.Tensor  # [max_pairs] bool, slot < num_pairs (the same in sorted order)
+    sorted_tile: torch.Tensor  # [max_pairs] int32 (pad: num_tiles)
+    sorted_depth: torch.Tensor  # [max_pairs] f32 (pad: +inf)
+
+
+def ranked_sort(rect_min, rect_max, radii, depths, image_width: int, image_height: int,
+                tile_w: int, tile_h: int, max_pairs: int) -> RankedSort:
+    """Pair expansion, owner ranks (K5), the tile rect and block start
+    gathered as int32 by rank, per-pair tiles, and the stable (tile, depth)
+    sort: the index part of ``bin_gaussians`` and of the sorted staging
+    above 2^24 slots (``staging._ranked_pairs``), which differ only in the
+    payload they carry through the sort.  Invalid slots sort to the tail,
+    so ``valid`` holds in slot and in sorted order alike."""
+    dev = rect_min.device
+    i32 = torch.int32
+    grid_w = -(-image_width // tile_w)
+    num_tiles = grid_w * -(-image_height // tile_h)
+    e = expand_pairs(rect_min, rect_max, radii, image_width, image_height,
+                     tile_w, tile_h, max_pairs)
+    rank = merge_cuda.merge_ranks(e.cum_keep, max_pairs)  # [max_pairs] in [0, n]
+    rank_c = torch.clamp(rank, max=rect_min.shape[0] - 1)
+    keep = e.keep_idx
+    # One gather per column: a row gather of the columns stacked as [n, 4]
+    # runs torch's vectorized row-gather kernel, and made the staging route
+    # above 2^24 slots 2.5x slower on an H100 (PERF.md).
+    g_tmin_x, g_tmin_y, g_rw, g_block = (col[keep][rank_c] for col in
+                                         (e.tmin_x, e.tmin_y, e.rw, e.block_start))
+    valid = torch.arange(max_pairs, dtype=i32, device=dev) < e.num_pairs
+    tiles = enumerate_tiles(g_block, g_rw, g_tmin_x, g_tmin_y, grid_w)
+    del g_tmin_x, g_tmin_y, g_rw, g_block
+    tile_ids = torch.where(valid, tiles, torch.full((), num_tiles, dtype=i32, device=dev))
+    depth_keys = torch.where(valid, depths.detach().to(torch.float32)[keep][rank_c],
+                             torch.full((), float("inf"), dtype=torch.float32, device=dev))
+    del tiles, rank_c
+    perm = sort_pairs(tile_ids, depth_keys)
+    return RankedSort(expansion=e, sorted_rank=rank[perm], valid=valid,
+                      sorted_tile=tile_ids[perm], sorted_depth=depth_keys[perm])
+
+
+def sorted_gauss_ids(r: RankedSort, n: int, fill: int) -> torch.Tensor:
+    """[max_pairs] int32 gaussian id of every sorted pair, ``fill`` on the
+    slots past the last pair."""
+    keep = r.expansion.keep_idx.to(torch.int32)
+    return torch.where(r.valid, keep[torch.clamp(r.sorted_rank, max=n - 1)],
+                       torch.full((), fill, dtype=torch.int32, device=keep.device))
+
+
 def bin_gaussians(
     rect_min: torch.Tensor,
     rect_max: torch.Tensor,
@@ -176,40 +226,21 @@ def bin_gaussians(
     tile_h: int,
     max_pairs: int,
 ) -> TileBinning:
-    """The split layout's binning: owner ranks (K5), one [max_pairs] row
-    gather of the per-gaussian table in compacted order, per-pair tiles,
-    and the stable (tile, depth) sort with the gaussian id as payload.  The
-    depth rides as a float (the JAX package bit-casts it through its int
-    table and back: the same values)."""
-    dev = rect_min.device
-    grid_w = -(-image_width // tile_w)
-    num_tiles = grid_w * -(-image_height // tile_h)
-    e = expand_pairs(rect_min, rect_max, radii, image_width, image_height,
-                     tile_w, tile_h, max_pairs)
-    rank = torch.clamp(merge_cuda.merge_ranks(e.cum_keep, max_pairs),
-                       max=rect_min.shape[0] - 1)
-    keep = e.keep_idx
-    i32 = torch.int32
-    table = torch.stack([e.tmin_x[keep], e.tmin_y[keep], e.rw[keep],
-                         e.block_start[keep], keep.to(i32)], dim=1)  # [n, 5]
-    g = table[rank]
-    depth_g = depths.detach().to(torch.float32)[keep][rank]
-    valid = torch.arange(max_pairs, dtype=i32, device=dev) < e.num_pairs
-    tiles = enumerate_tiles(g[:, 3], g[:, 2], g[:, 0], g[:, 1], grid_w)
-    tile_ids = torch.where(valid, tiles, torch.full((), num_tiles, dtype=i32, device=dev))
-    depth_keys = torch.where(valid, depth_g,
-                             torch.full((), float("inf"), dtype=torch.float32, device=dev))
-    gauss_ids = torch.where(valid, g[:, 4], torch.zeros((), dtype=i32, device=dev))
-    perm = sort_pairs(tile_ids, depth_keys)
-    sorted_tile = tile_ids[perm]
-    tile_start, tile_count = tile_ranges(sorted_tile, num_tiles)
+    """The split layout's binning: ``ranked_sort`` with the gaussian id as
+    payload.  The depth rides as a float (the JAX package bit-casts it
+    through its int table and back: the same values)."""
+    num_tiles = -(-image_width // tile_w) * -(-image_height // tile_h)
+    r = ranked_sort(rect_min, rect_max, radii, depths, image_width, image_height,
+                    tile_w, tile_h, max_pairs)
+    tile_start, tile_count = tile_ranges(r.sorted_tile, num_tiles)
+    e = r.expansion
     return TileBinning(
-        sorted_gauss_idx=gauss_ids[perm],
-        sorted_tile_id=sorted_tile,
+        sorted_gauss_idx=sorted_gauss_ids(r, rect_min.shape[0], 0),
+        sorted_tile_id=r.sorted_tile,
         tile_start=tile_start,
         tile_count=tile_count,
         num_pairs=e.num_pairs,
         overflow_gaussians=e.overflow_gaussians,
         overflow_pairs=e.overflow_pairs,
-        pair_valid=sorted_tile < num_tiles,
+        pair_valid=r.sorted_tile < num_tiles,
     )

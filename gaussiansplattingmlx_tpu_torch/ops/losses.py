@@ -16,6 +16,9 @@ def mse(pred, target):
     return torch.mean((pred - target) ** 2)
 
 
+l2_loss = mse
+
+
 def mse2psnr(value):
     """PSNR = -10 * log10(mse)."""
     return -10.0 * torch.log10(value)
@@ -42,3 +45,17 @@ def total_loss(render, target_rgb, depth, target_depth, depth_mask,
     d = depth_loss(depth, target_depth, depth_mask)
     loss = (1.0 - lambda_dssim) * l1 + lambda_dssim * (1.0 - ssim_val) + lambda_depth * d
     return loss, {"l1": l1, "ssim": ssim_val, "depth": d}
+
+
+def smooth_l1_ohem(pred, target, beta: float = 1.0, ohem_fraction: float = 1.0):
+    """Smooth-L1 with online hard example mining: the mean of the hardest
+    ``ohem_fraction`` of the per-element losses (at least one).  The top-k
+    cut takes a count fixed by the input's size, as the JAX package's
+    ``lax.top_k`` does."""
+    diff = torch.abs(pred - target)
+    per_elem = torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
+    flat = per_elem.reshape(-1)
+    if ohem_fraction >= 1.0:
+        return torch.mean(flat)
+    k = max(1, int(flat.shape[0] * ohem_fraction))
+    return torch.mean(torch.topk(flat, k).values)

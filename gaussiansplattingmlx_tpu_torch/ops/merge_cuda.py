@@ -25,7 +25,7 @@ from . import _kernels
 # zero-padded to 24 (the JAX package's layout, kept for bit-equal buffers).
 TBL_ROWS = 24
 # Gaussian ids and slot indices ride as f32 values: exact up to 2^24.
-_F32_EXACT = 2 ** 24
+F32_EXACT = 2 ** 24
 # Slots per block of K5 (kBlockSlots in csrc/merge_ranks.cu): the tests
 # place owner windows at its block edges.
 RANKS_BLOCK_SLOTS = 2048
@@ -79,7 +79,7 @@ def _check(cum: torch.Tensor, table_cm: torch.Tensor, max_pairs: int) -> None:
     check(table_cm.dtype == torch.float32, "table must be float32")
     check(table_cm.device == cum.device, "cum and table on different devices")
     check(table_cm.is_contiguous(), "table must be contiguous")
-    check(max_pairs <= _F32_EXACT and n <= _F32_EXACT,
+    check(max_pairs <= F32_EXACT and n <= F32_EXACT,
           "f32-exact value carriage needs max_pairs, n <= 2^24")
 
 

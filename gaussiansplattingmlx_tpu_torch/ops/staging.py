@@ -9,6 +9,10 @@ Payload carriage, as the JAX package runs by default:
     1. The per-gaussian table (tile rect, block start, depth, gaussian id and
        the 11 kernel-layout record floats, as real f32 values) is gathered to
        the pair axis by the fused merge-gather kernel (``merge_cuda``).
+       Budgets above ``K2_MAX_SLOTS`` (where f32 slot values stop being
+       exact) take the ranks alone (K5) instead: the tile rect, block start
+       and gaussian id are gathered as int32, the depth as f32, and the 11
+       record rows once, by the ranks in sorted order.
     2. ONE stable sort on (tile, depth) orders the pairs; the record rows are
        carried through it by the sort's permutation.
     3. Per-tile ranges by searchsorted.  The sorted layouts stop here: the
@@ -39,6 +43,10 @@ import torch
 from . import binning as binning_mod
 from . import merge_cuda, rasterize_cuda, relayout_cuda
 from .rasterize_cuda import REC_DIM
+
+# Largest budget the fused merge-gather (K2) takes: it carries slot indices as
+# f32 values, exact up to 2^24.  Larger budgets merge through K5's int32 ranks.
+K2_MAX_SLOTS = merge_cuda.F32_EXACT
 
 
 class StagingStatic(NamedTuple):
@@ -108,7 +116,10 @@ def _sorted_pairs(st: StagingStatic, packed, rect_min, rect_max, radii, depths):
     """Merge-gather + (tile, depth) sort.  Returns (the 11 kernel-layout
     record rows in sorted order [11, max_pairs], the sorted gaussian id
     [max_pairs] int32 with ``num_rec`` on slots past the last pair,
-    tile_start, tile_count, expansion)."""
+    tile_start, tile_count, expansion).  Budgets above ``K2_MAX_SLOTS``
+    take ``_ranked_pairs``: the same outputs bit for bit."""
+    if st.max_pairs > K2_MAX_SLOTS:
+        return _ranked_pairs(st, packed, rect_min, rect_max, radii, depths)
     dev = packed.device
     f32 = torch.float32
     grid_w = -(-st.image_width // st.tile_w)
@@ -140,6 +151,36 @@ def _sorted_pairs(st: StagingStatic, packed, rect_min, rect_max, radii, depths):
     # --- 3. tile ranges -----------------------------------------------------
     tile_start, tile_count = binning_mod.tile_ranges(sorted_tile, num_tiles)
     return rec_rows, gid, tile_start, tile_count, e
+
+
+def _ranked_pairs(st: StagingStatic, packed, rect_min, rect_max, radii, depths):
+    """``_sorted_pairs`` for budgets above ``K2_MAX_SLOTS``: the split
+    layout's index part (``binning.ranked_sort``: K5 ranks, the tile rect
+    and block start gathered as int32, the sort), then ONE gather of the 11
+    record rows by the ranks in sorted order.  Bit-equal to the K2 route: a
+    slot of rank n (past the last pair) selects a zero column of records, as
+    K2 does.  The JAX package's fallback instead clamps the rank to n - 1
+    and gathers the block start through f32, so it agrees with this route
+    only on valid slots and only while the pair count is at most 2^24."""
+    n = packed.shape[0]
+    if n >= 2 ** 24:
+        raise ValueError("the aligned layout carries gaussian ids as f32 values: "
+                         "num_rec < 2^24")
+    f32 = torch.float32
+    dev = packed.device
+    r = binning_mod.ranked_sort(rect_min, rect_max, radii, depths, st.image_width,
+                                st.image_height, st.tile_w, st.tile_h, st.max_pairs)
+    # [11, n + 1]: the kernel-layout records in compacted order, then the
+    # zero column that slots of rank n select.
+    rec_tbl = torch.cat(
+        [packed.detach()[:, list(rasterize_cuda.PERM)].to(f32)[r.expansion.keep_idx].T,
+         torch.zeros((11, 1), dtype=f32, device=dev)], dim=1)
+    rec_rows = rec_tbl[:, r.sorted_rank]  # [11, max_pairs]
+    rec_rows[9] = torch.where(r.valid, r.sorted_depth, torch.zeros((), dtype=f32, device=dev))
+    num_tiles = -(-st.image_width // st.tile_w) * -(-st.image_height // st.tile_h)
+    tile_start, tile_count = binning_mod.tile_ranges(r.sorted_tile, num_tiles)
+    return (rec_rows, binning_mod.sorted_gauss_ids(r, n, n), tile_start, tile_count,
+            r.expansion)
 
 
 def stage_pairs_sorted(st: StagingStatic, packed, rect_min, rect_max, radii,

@@ -45,6 +45,15 @@ def rgb2sh(rgb):
     return (rgb - 0.5) / C0
 
 
+def sh2rgb(sh):
+    """DC SH coefficient -> RGB."""
+    return sh * C0 + 0.5
+
+
+def num_sh_coeffs(degree: int) -> int:
+    return (degree + 1) ** 2
+
+
 def eval_sh(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """Evaluate the SH basis combination.
 

@@ -7,6 +7,11 @@ from __future__ import annotations
 import torch
 
 
+def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The logit, log(x / (1 - x))."""
+    return torch.log(x / (1.0 - x))
+
+
 def homogeneous(points: torch.Tensor) -> torch.Tensor:
     """[..., 3] -> [..., 4] with trailing 1."""
     return torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)
@@ -57,6 +62,15 @@ def build_cov3d(scales: torch.Tensor, quat: torch.Tensor,
     return torch.sum(L[..., :, None, :] * L[..., None, :, :], dim=-1)
 
 
+def strip_lowerdiag(cov: torch.Tensor) -> torch.Tensor:
+    """Symmetric [..., 3, 3] -> 6-vector (xx, xy, xz, yy, yz, zz)."""
+    return torch.stack(
+        [cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+         cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]],
+        dim=-1,
+    )
+
+
 def inv3x3(m: torch.Tensor) -> torch.Tensor:
     """Cofactor 3x3 inverse."""
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
@@ -75,3 +89,17 @@ def inv3x3(m: torch.Tensor) -> torch.Tensor:
         dim=-2,
     )
     return inv / det[..., None, None]
+
+
+def mask_to_indices(mask: torch.Tensor, fill_value: int = -1):
+    """Boolean mask -> (indices [mask.numel()] int64, count 0-d int32): the
+    indices of the True entries first, in order, then ``fill_value``.  The
+    shape does not depend on the mask's contents (a stable argsort, not
+    ``nonzero``)."""
+    mask = mask.reshape(-1)
+    n = mask.shape[0]
+    count = torch.sum(mask.to(torch.int32))
+    order = torch.argsort((~mask).to(torch.int8), stable=True)
+    idx = torch.where(torch.arange(n, device=mask.device) < count, order,
+                      torch.full((), fill_value, dtype=order.dtype, device=mask.device))
+    return idx, count
