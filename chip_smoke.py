@@ -6,11 +6,18 @@
 Builds the port's CUDA kernels from ``gaussiansplattingmlx_tpu_torch/csrc``
 and checks each against its plain PyTorch version at the shapes of its path:
 
+* the port's bench through its entry point (``python -m
+  gaussiansplattingmlx_tpu_torch.bench`` at its defaults, in a fresh
+  process): the JAX package's bench.py workload (its seed-0 scene of
+  100,000 Gaussians, SH3, one 800x800 view, tile 32, the probed budget),
+  50 timed forward + backward steps with bit-identical losses, no overflow,
+  K2, K1, K3 and K4 once a step; then K2, K1, K3 and K4 checked and timed
+  on that workload's first-step buffers (``bench_*`` in the kernels line);
 * K1 forward compositing and K2 merge-gather on the serving path's inputs,
   then the serving path through its entry point
-  (``gaussiansplattingmlx_tpu_torch.render_cli.main``): the bench scene of
-  100,000 Gaussians at SH degree 3, rendered at 800x800 from 4 orbit views
-  plus a 16-frame throughput loop;
+  (``gaussiansplattingmlx_tpu_torch.render_cli.main``): a variant of
+  bench.py's scene (``bench_scene``) of 100,000 Gaussians at SH degree 3,
+  rendered at 800x800 from 4 orbit views plus a 16-frame throughput loop;
 * K3 backward compositing and K4 per-Gaussian segment sum on the training
   buffers of the bench camera (the cotangent of the real L1 + SSIM loss;
   K4 with the buffer's segment profile and its feed, ``sort_by_gid``,
@@ -152,6 +159,15 @@ NCON_MISMATCH = 0.003
 # from the stored alpha and sums over pixels in a tree; the plain version
 # differentiates a cumulative product.
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
+# Backward rows on a buffer whose pixels end near the transmittance floor:
+# the JAX package's early-exit tolerance for the same kernel design
+# (tests/test_rasterize_pallas.py:167, ROADMAP.md C).  K3 rebuilds T from
+# T_final = 1 - alpha, which keeps a float32 ulp of alpha (~6e-8) on a T of
+# ~1e-6; bench.py's scene (opacity logits N(0, 2^2), ~880 records a tile)
+# has such pixels, and there one gradient of K3 left the bars above
+# against the plain version (which agrees with a float64 evaluation to
+# 0.2% of them).
+EARLY_RTOL, EARLY_ATOL = 5e-3, 5e-4
 # Segment sums: another summation order than index_add_'s; atol 1e-6 of the
 # largest sum covers segments that cancel.
 SEGSUM_RTOL, SEGSUM_ATOL = 1e-5, 1e-6
@@ -297,6 +313,14 @@ TRACE_KERNELS = {"merge_gather": "merge_gather_kernel", "raster_fwd": "raster_fw
                  "raster_bwd": "raster_bwd_kernel", "segsum": "segsum_kernel"}
 
 
+# The port's bench (gaussiansplattingmlx_tpu_torch/bench.py) at its defaults,
+# bench.py's workload: 100,000 Gaussians, SH3, 800x800, tile 32, chunk 128,
+# the probed budget, 5 timed loops of 10 forward + backward steps.  Each step
+# launches K2, K1, K3 and K4 once.
+BENCH_TIMEOUT = 600
+BENCH_KERNELS = ("merge_gather", "raster_fwd", "raster_bwd", "segsum")
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -386,10 +410,15 @@ def bound(nbytes: float, ops: float) -> dict:
 
 
 def bench_scene(path: Path) -> None:
-    """The JAX package's bench scene (bench.py), drawn from numpy with seed
-    SEED, written as a Gaussian PLY: points N(0, 0.6^2), colours U(0.05,
-    0.95), identity rotations, scales U(0.004, 0.02), opacity logits N(0, 2^2);
-    the higher SH bands small but nonzero so degree 3 does real work."""
+    """A variant of the JAX package's bench scene (bench.py:79-93), drawn
+    from numpy with seed SEED, written as a Gaussian PLY: points N(0,
+    0.6^2), colours U(0.05, 0.95), identity rotations, scales U(0.004,
+    0.02), opacity logits N(0, 2^2), and, unlike bench.py's, the higher SH
+    bands small but nonzero (N(0, 0.05^2), drawn before the scales and
+    opacities, so those differ from bench.py's too) so degree 3 does real
+    work.  bench.py's own scene is ``gaussiansplattingmlx_tpu_torch.bench
+    .bench_scene`` (the bench phase); this one stays so that the kernel
+    times of earlier runs stay comparable."""
     from gaussiansplattingmlx_tpu_torch.data import ply
     from gaussiansplattingmlx_tpu_torch.utils import sh
 
@@ -592,13 +621,26 @@ def small_scene(n=400):
     }
 
 
-def assert_rows_close(got, want, what):
+def assert_rows_close(got, want, what, rtol=GRAD_RTOL, atol=GRAD_ATOL):
     for r in range(want.shape[0]):
         scale = max(float(want[r].abs().max()), 1e-30)
         try:
-            torch.testing.assert_close(got[r], want[r], rtol=GRAD_RTOL, atol=GRAD_ATOL * scale)
+            torch.testing.assert_close(got[r], want[r], rtol=rtol, atol=atol * scale)
         except AssertionError as exc:
             raise SmokeFailure(f"{what}: row {r}: {exc}") from None
+
+
+def beyond_grad_bars(got, want) -> tuple:
+    """(entries of ``got`` outside the GRAD bars of ``want``, the largest
+    ratio of an entry's difference to its bar), rows scaled as in
+    ``assert_rows_close``."""
+    count, worst = 0, 0.0
+    for r in range(want.shape[0]):
+        scale = max(float(want[r].abs().max()), 1e-30)
+        ratio = (got[r] - want[r]).abs() / (GRAD_ATOL * scale + GRAD_RTOL * want[r].abs())
+        count += int((ratio > 1).sum())
+        worst = max(worst, float(ratio.max()))
+    return count, worst
 
 
 def loss_cotangent_block(records_cm, tile_start, tile_count, width, height, tile, target):
@@ -1067,24 +1109,33 @@ def check_layout_buffers(trainer, layout):
 
 def check_training_buffers(trainer, device, label="training buffers, first step", view=0,
                            band=None):
-    """K2, K1, K3 and K4 against their plain versions on the buffers of the
-    trainer's next step: its tile, pair budget and capacity, its current
-    parameters (the initial ones before its run), view ``view`` (with
-    ``band``, one pixel band of it: ``first_step_geometry``) and the L1 +
-    SSIM cotangent against its target; K1 and K3 also bit-identical over
-    two launches.  Returns the kernels line's entries for K2, K1, K3 and K4,
-    timed on these buffers (the shapes their path gives them).  Above
-    ``staging.K2_MAX_SLOTS`` the path merges through K5, not K2: K2 is
-    left out (its entry None), and K5 is checked by ``check_merge_ranks``."""
-    from gaussiansplattingmlx_tpu_torch.ops import rasterize_cuda, staging
-
+    """K2, K1, K3 and K4 on the buffers of the trainer's next step
+    (``check_step_buffers``): its tile, pair budget and capacity, its
+    current parameters (the initial ones before its run), view ``view``
+    (with ``band``, one pixel band of it: ``first_step_geometry``) and its
+    target."""
     cfg = trainer.cfg.raster
-    state, views = trainer.state, trainer.views
     args, st = first_step_geometry(trainer, view, band)
-    target = views["target_rgb"][view]
+    target = trainer.views["target_rgb"][view]
     if band is not None:
         target = target[band[1]:band[1] + band[0]]
-    what = f"{label}, max_pairs {cfg.max_pairs}"
+    return check_step_buffers(args, st, target, trainer.state.params.capacity,
+                              f"{label}, max_pairs {cfg.max_pairs}")
+
+
+def check_step_buffers(args, st, target, capacity, what, early_exit=False):
+    """K2, K1, K3 and K4 against their plain versions on one training step's
+    buffers: the staging inputs ``args`` at the statics ``st`` (tile, pair
+    budget), ``capacity`` rows and the L1 + SSIM cotangent against
+    ``target``; K1 and K3 also bit-identical over two launches.  K3 is held
+    to the GRAD bars, or, with ``early_exit`` (pixels that end near the
+    transmittance floor), to the EARLY bars, its entries beyond the GRAD
+    bars counted.  Returns the kernels line's entries for K2, K1, K3 and
+    K4, timed on these buffers (the shapes their path gives them).  Above ``staging.K2_MAX_SLOTS`` the
+    path merges through K5, not K2: K2 is left out (its entry None), and K5
+    is checked by ``check_merge_ranks``."""
+    from gaussiansplattingmlx_tpu_torch.ops import rasterize_cuda, staging
+
     with torch.no_grad():
         merge = None
         if st.max_pairs <= staging.K2_MAX_SLOTS:
@@ -1093,7 +1144,7 @@ def check_training_buffers(trainer, device, label="training buffers, first step"
             del e, tbl
         sp, gid = staging._stage_train_impl(st, *args)
     require(int(sp.overflow_pairs) == 0, "training buffers overflow")
-    tile = cfg.tile_w
+    tile = st.tile_w
     grid = (-(-st.image_width // tile), -(-st.image_height // tile))
     fwd = check_fwd((sp.records_cm, sp.tile_start, sp.tile_count, *grid, tile, tile), what)
     block, _ = loss_cotangent_block(sp.records_cm, sp.tile_start, sp.tile_count,
@@ -1106,20 +1157,79 @@ def check_training_buffers(trainer, device, label="training buffers, first step"
     require(bit_equal(got3, again), "raster_bwd: two launches differ (training buffers)")
     del again
     want3, plain3_ms = timed_once(lambda: rasterize_cuda.raster_bwd_plain(*bargs))
-    assert_rows_close(got3, want3, f"raster_bwd on the training buffers (tile {tile})")
+    rtol, atol = (EARLY_RTOL, EARLY_ATOL) if early_exit else (GRAD_RTOL, GRAD_ATOL)
+    assert_rows_close(got3, want3, f"raster_bwd on the training buffers (tile {tile})", rtol,
+                      atol)
+    beyond, worst = beyond_grad_bars(got3, want3)
     err3 = float((got3 - want3).abs().max())
     del want3
     t3 = kernel_ms(lambda: rasterize_cuda.raster_bwd(*bargs))
     lim3, taken3, replayed3 = bwd_bound(block, sp.tile_count, got3.numel())
-    print(f"raster_bwd: within tolerance of plain on {int(sp.num_pairs)} pairs ({what}, "
-          f"tile {tile}); bit-identical repeats, max abs err {err3:.3g}, kernel "
+    print(f"raster_bwd: within rtol {rtol} / scaled atol {atol} of plain on "
+          f"{int(sp.num_pairs)} pairs ({what}, tile {tile}; {beyond} entries beyond rtol "
+          f"{GRAD_RTOL} / scaled atol {GRAD_ATOL}, worst at {worst:.3f} of it); bit-identical "
+          f"repeats, max abs err {err3:.3g}, kernel "
           f"{t3['ms']:.4f} ms (a call {t3['call_ms']:.4f} ms), plain {plain3_ms:.4f} ms "
           f"(one run), bound {lim3['bound_ms']:.4f} ms ({lim3['bound_by']}, {taken3:.0f} "
           f"pixel-records, {replayed3} pairs replayed)", flush=True)
-    segsum = check_segsum(gid, got3, state.params.capacity, f"{what}, K3's rows")
+    segsum = check_segsum(gid, got3, capacity, f"{what}, K3's rows")
     bwd = {"max_abs_err": err3, **t3, "plain_ms": plain3_ms, **lim3, "library_ms": None,
-           "design": BWD_DESIGN}
+           "design": BWD_DESIGN, "rtol": rtol, "beyond_grad_bars": beyond,
+           "worst_of_grad_bar": worst}
     return {"merge_gather": merge, "raster_fwd": fwd, "raster_bwd": bwd, "segsum": segsum}
+
+
+def run_bench(device, counters, gpu) -> dict:
+    """The port's bench through its entry point (``python -m
+    gaussiansplattingmlx_tpu_torch.bench`` at its defaults) in a fresh
+    process: exit code 0, no overflow, a finite loss (the bench fails unless
+    every step's loss is bit-identical), K2, K1, K3 and K4 once a timed step
+    and no other kernel.  Then K2, K1, K3 and K4 against their plain
+    versions on that workload's first-step buffers, built here by the bench
+    module's own scene, camera and budget, and timed there.  Returns the
+    bench's last line, its launches by kernel and the kernel entries."""
+    from gaussiansplattingmlx_tpu_torch import bench as port_bench
+    from gaussiansplattingmlx_tpu_torch.models.gaussians import activations
+    from gaussiansplattingmlx_tpu_torch.ops import projection, rasterize_ref, staging
+
+    proc = subprocess.run([sys.executable, "-m", "gaussiansplattingmlx_tpu_torch.bench"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    require(proc.returncode == 0, f"bench exited {proc.returncode}:\n{proc.stdout[-4000:]}"
+                                  f"\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    for ln in lines[:-1]:
+        print(f"bench: {ln}", flush=True)
+    line = json.loads(lines[-1])
+    launched = json.loads(next(ln for ln in lines if ln.startswith("kernel launches: "))
+                          .split(": ", 1)[1])
+    steps = line["repeats"] * line["iters"]
+    by_name = {name: launched["total"][k.symbol] for name, k in counters.items()}
+    require(launched["steps"] == steps and by_name == {
+        name: steps if name in BENCH_KERNELS else 0 for name in counters},
+        f"bench launches {by_name} over {steps} steps")
+    require(line["overflow_pairs"] == 0, f"bench overflow: {line}")
+    require(np.isfinite(line["loss"]) and line["num_pairs"] > 0, f"bench line: {line}")
+    require(line["device"] == torch.cuda.get_device_name(0), f"bench device: {line}")
+    print(f"bench line: {lines[-1]} | {gpu}", flush=True)
+
+    d = port_bench.parse_args([])
+    size, deg, tile = d.size, d.sh_degree, d.tile
+    params, target = port_bench.bench_scene(d.gaussians, deg, d.seed, device, size)
+    cam = port_bench.camera_args(port_bench.bench_camera(size), device)
+    demand = port_bench.pair_demand(params, cam, size, deg, tile)
+    max_pairs = port_bench.pair_budget(demand, d.chunk)
+    require(max_pairs == line["max_pairs"] and line["tile"] == tile,
+            f"the bench's budget {line['max_pairs']} != {max_pairs} here")
+    with torch.no_grad():
+        means, shs, opacity, scales, rots = activations(params)
+        p = projection.project_gaussians(means, scales, rots, shs, *cam, size, size, deg)
+        packed = rasterize_ref.pack_gaussians(p.means2d, p.conic, p.colors, opacity, p.depths)
+    st = staging.StagingStatic(size, size, tile, tile, max_pairs, d.chunk)
+    entries = check_step_buffers((packed, p.rect_min, p.rect_max, p.radii, p.depths), st,
+                                 target, d.gaussians,
+                                 f"bench.py's workload, first step, {demand} pairs probed, "
+                                 f"max_pairs {max_pairs}", early_exit=True)
+    return {"line": line, "launches": by_name, "entries": entries}
 
 
 def run_training(trainer, counters, steps=TRAIN_STEPS):
@@ -2769,6 +2879,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s ({nvcc_s})"
           f"; ptxas: {' | '.join(ptxas)}", flush=True)
 
+    # 2b. the port's bench (bench.py's workload) through its entry point in a
+    # fresh process, then K2, K1, K3 and K4 on its first-step buffers
+    bench = run_bench(device, counters, gpu)
+    elapsed("bench")
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         ply_path = Path(tmp) / "bench_scene.ply"
         bench_scene(ply_path)
@@ -3054,6 +3169,19 @@ def main() -> int:
         entry["launches_parallel"] = {
             **{run: [r[name] for r in launched] for run, launched in par["runs"].items()},
             **{run: [r[name] for r in e["launches"]] for run, e in cli_par.items()}}
+
+    # K2, K1, K3 and K4 on the bench workload's first-step buffers (tile 32,
+    # its probed budget), and their launches in the bench's timed steps.
+    for name, entry in (("merge_gather", merge_gather), ("raster_fwd", raster_fwd),
+                        ("raster_bwd", raster_bwd), ("segsum", segsum)):
+        keys = (*timed, "bound_by", "library_ms")
+        if name == "segsum":
+            keys += ("library_call_ms", "sort_ms", "segments")
+        if name == "raster_bwd":
+            keys += ("rtol", "beyond_grad_bars", "worst_of_grad_bar")
+        entry.update({f"bench_{k}": bench["entries"][name][k] for k in keys})
+        entry["bench_launches"] = bench["launches"][name]
+    raster_fwd["bench_pixel_records"] = bench["entries"]["raster_fwd"]["pixel_records"]
 
     kernels = [
         {"name": "merge_gather", "route": "cuda",
