@@ -73,6 +73,15 @@ and checks each against its plain PyTorch version at the shapes of its path:
   ray-traced by scripts/make_vendor_scene.py into a temporary directory,
   its 16,381-point surface sample) at the default config, and K2, K1, K3
   and K4 checked and timed on that run's last buffers;
+* the flagship campaign (``train_flagship.run``, the JAX package's
+  scripts/train_flagship_tpu.py): the self-fit form at full width (the
+  procedural scene's 59,960 ground-truth Gaussians rendered from 32 orbit
+  views at 800x800, each view's exact pairs equal to ``bench.pair_demand``,
+  16,384 initial points, SH3) for 1,000 steps (densify rounds at 500-1,000),
+  with no overflow, the JAX summary's keys and PSNR up by 1.5 dB; K2, K1, K3
+  and K4 checked and timed on that run's last buffers (``flagship_*`` in
+  the kernels line); then the independent form on the full-width scene, 2
+  views held out, 300 steps, finite held-out PSNR / SSIM and their PNGs;
 * the oracle (``backend="reference"``, plain torch on the card): one
   render and one training step's parameter gradients of a 400-Gaussian
   100x72 scene against the kernels' path (the JAX image and gradient
@@ -253,6 +262,25 @@ FULL_POINTS = 16384
 FULL_STEPS = 600
 FULL_WORKERS = 4
 FULL_HEADROOM = 3
+# The flagship campaign (train_flagship.py, the JAX package's
+# scripts/train_flagship_tpu.py): the self-fit form at its full width (the
+# procedural scene's 59,960 Gaussians, 32 orbit views at 800x800, 16,384
+# initial points, SH3, tile 16, budget from 2^21), cut to FLAGSHIP_STEPS
+# steps (densify rounds at 500-1,000); then the independent form on the
+# full-width scene with FLAGSHIP_HOLDOUT views held out, FLAGSHIP_HOLDOUT_STEPS
+# steps, the INRIA switches of the JAX package's round-4 campaign.  The
+# self-fit run must gain PSNR_GAIN_DB from its first logged row to its last.
+FLAGSHIP_STEPS = 1000
+FLAGSHIP_VIEWS = 32
+FLAGSHIP_TILE = 16
+FLAGSHIP_HOLDOUT = 2
+FLAGSHIP_HOLDOUT_STEPS = 300
+# The JAX script's summary keys (scripts/train_flagship_tpu.py:414-446).
+FLAGSHIP_SUMMARY_KEYS = {
+    "workload", "final_psnr", "final_loss", "first_psnr", "num_gaussians_final",
+    "num_gaussians_peak", "gaussian_trajectory", "sustained_it_per_s", "mean_it_per_s",
+    "wall_s_total", "segments", "capacity_recompiles", "pair_budget_recompiles",
+    "final_max_pairs", "overflow_events"}
 # The data- and tile-parallel phases.  Ranks start from parallel/launch.py
 # and all compute on this one card over gloo (NCCL refuses two ranks on one
 # card), so their times are not a scaling result.  Full width: the bench
@@ -958,7 +986,7 @@ def orbit_targets(ply_path: Path, device, n_views: int = TRAIN_VIEWS):
     from gaussiansplattingmlx_tpu_torch.data.dataset import TrainData
     from gaussiansplattingmlx_tpu_torch.models.gaussians import activations, params_from_numpy
     from gaussiansplattingmlx_tpu_torch.render import render
-    from gaussiansplattingmlx_tpu_torch.render_cli import orbit_c2w
+    from gaussiansplattingmlx_tpu_torch.utils.camera import orbit_c2w
     from gaussiansplattingmlx_tpu_torch.utils.camera import Camera
 
     params = params_from_numpy(ply.read_gaussian_ply(ply_path), device)
@@ -1458,7 +1486,7 @@ def run_split_serving(ply_path: Path, device, max_pairs, fused_colors, counters)
     from gaussiansplattingmlx_tpu_torch.data import ply
     from gaussiansplattingmlx_tpu_torch.models.gaussians import activations, params_from_numpy
     from gaussiansplattingmlx_tpu_torch.render import render_many
-    from gaussiansplattingmlx_tpu_torch.render_cli import orbit_c2w
+    from gaussiansplattingmlx_tpu_torch.utils.camera import orbit_c2w
     from gaussiansplattingmlx_tpu_torch.utils.camera import Camera
 
     params = params_from_numpy(ply.read_gaussian_ply(ply_path), device)
@@ -1783,6 +1811,118 @@ def run_full(tmp: Path, counters, expect, gpu: str):
           f"call); peak memory {peak_mem / 2**30:.3f} GiB; loader {load_half_s:.3f} s at "
           f"--resize-factor 0.5; launches {launches} | {gpu}", flush=True)
     return trainer, {"full": launches, "full_eval": eval_launches}
+
+
+def run_flagship(tmp: Path, device, counters, expect, gpu: str):
+    """The flagship campaign through ``train_flagship.run``: the self-fit
+    form at full width (each ground-truth view's exact pairs equal to
+    ``bench.pair_demand`` on the ground truth's parameters, no overflow,
+    the JAX summary's keys, PSNR up by PSNR_GAIN_DB, K2 and K1 once a
+    ground-truth view and K2, K1, K3 and K4 once a step), then the
+    independent form on ``run_full``'s scene (no overflow in the run or in
+    the held-out renders, finite held-out PSNR / SSIM that a second render
+    reproduces, the held-out PNGs; K2 and K1 also once a held-out view).  Returns (the
+    self-fit run's trainer, the launches of each run)."""
+    from types import SimpleNamespace
+
+    from gaussiansplattingmlx_tpu_torch import bench as port_bench, train_flagship
+    from gaussiansplattingmlx_tpu_torch.data import colmap
+    from gaussiansplattingmlx_tpu_torch.models import gaussians
+    from gaussiansplattingmlx_tpu_torch.ops import losses
+    from gaussiansplattingmlx_tpu_torch.utils.camera import camera_args
+
+    entry = SimpleNamespace(main=train_flagship.run)
+    out = tmp / "flagship"
+    res, seconds, launches, peak_mem = cli_run(
+        entry, ["--iters", str(FLAGSHIP_STEPS), "--views", str(FLAGSHIP_VIEWS), "--size",
+                str(FULL_SIZE), "--out", str(out), "--device", str(device)], counters)
+    steps, views = FLAGSHIP_STEPS, FLAGSHIP_VIEWS
+    require(launches == expect(merge_gather=steps + views, raster_fwd=steps + views,
+                               raster_bwd=steps, segsum=steps),
+            f"flagship launches {launches}")
+    summary, trainer = res.summary, res.trainer
+    require(set(summary) == FLAGSHIP_SUMMARY_KEYS,
+            f"flagship summary keys {sorted(summary)}")
+    cams = train_flagship.orbit_cameras(views, FULL_SIZE)
+    demand = [port_bench.pair_demand(res.gt_params,
+                                     camera_args(c.tensors(), device), FULL_SIZE,
+                                     SH_DEGREE, FLAGSHIP_TILE) for c in cams]
+    require(res.gt_pairs == demand, f"ground-truth pairs {res.gt_pairs} differ from the "
+                                    f"probe's {demand}")
+    rows, _ = train_flagship.merge_metric_segments(out / "metrics.jsonl")
+    require(len(rows) == steps // 50 and all(np.isfinite(r["loss"]) for r in rows),
+            f"flagship rows {[r['iteration'] for r in rows]}")
+    require(summary["overflow_events"] == 0 and rows[-1]["overflow_pairs_acc"] == 0,
+            f"flagship overflow: {summary['overflow_events']} events")
+    require(summary["final_psnr"] >= summary["first_psnr"] + PSNR_GAIN_DB,
+            f"flagship PSNR {summary['first_psnr']:.3f} -> {summary['final_psnr']:.3f} dB")
+    require((out / "gt_view0.png").is_file() and (out / "summary.json").is_file()
+            and (out / f"iteration_{steps}.ply").is_file(), "flagship files missing")
+    print(f"train_flagship self-fit: {len(res.gt_params.xyz)} ground-truth gaussians, {views} "
+          f"views {FULL_SIZE}x{FULL_SIZE} SH{SH_DEGREE}, exact pairs a view "
+          f"{min(demand)}-{max(demand)} (= bench.pair_demand at tile {FLAGSHIP_TILE}); "
+          f"{steps} steps: gaussians {rows[0]['num_active']} -> "
+          f"{summary['num_gaussians_final']} (peak {summary['num_gaussians_peak']}), capacity "
+          f"{rows[0]['capacity']} -> {rows[-1]['capacity']}, max_pairs {rows[0]['max_pairs']} "
+          f"-> {summary['final_max_pairs']} ({summary['pair_budget_recompiles']} changes), "
+          f"num_pairs {int(rows[0]['num_pairs'])} -> {int(rows[-1]['num_pairs'])}, overflow "
+          f"events 0; PSNR {summary['first_psnr']:.3f} -> {summary['final_psnr']:.3f} dB; "
+          f"{summary['sustained_it_per_s']:.2f} it/s sustained, {summary['mean_it_per_s']:.2f} "
+          f"mean ({seconds:.2f} s for the call); peak memory {peak_mem / 2**30:.3f} GiB; "
+          f"launches {launches} | {gpu}", flush=True)
+
+    hold_out = tmp / "flagship_holdout"
+    hres, hseconds, hlaunches, hpeak = cli_run(entry, [
+        "--dataset-root", str(tmp / "full_scene"), "--holdout", str(FLAGSHIP_HOLDOUT),
+        "--iters", str(FLAGSHIP_HOLDOUT_STEPS), "--spatial-lr-scale", "auto",
+        "--prune-world-scale", "2.0", "--out", str(hold_out), "--device", str(device)],
+        counters)
+    hsteps, held = FLAGSHIP_HOLDOUT_STEPS, FLAGSHIP_HOLDOUT
+    require(hlaunches == expect(merge_gather=hsteps + held, raster_fwd=hsteps + held,
+                                raster_bwd=hsteps, segsum=hsteps),
+            f"flagship held-out launches {hlaunches}")
+    hsum = hres.summary
+    hold = hsum.get("holdout", {})
+    ids = hold.get("views", [])
+    require(set(hsum) == FLAGSHIP_SUMMARY_KEYS | {"holdout"} and len(ids) == held
+            and hsum["workload"]["views"] == FULL_VIEWS - held,
+            f"flagship held-out summary {sorted(hsum)}, views {ids}")
+    require(all(np.isfinite(v) for v in hold["psnr_per_view"] + hold["ssim_per_view"]),
+            f"flagship held-out metrics {hold}")
+    require(all((hold_out / "holdout" / f"holdout_{i:03d}.png").is_file() for i in ids),
+            "flagship held-out PNGs missing")
+    hrows, _ = train_flagship.merge_metric_segments(hold_out / "metrics.jsonl")
+    require(hsum["overflow_events"] == 0 and hrows[-1]["overflow_pairs_acc"] == 0,
+            f"flagship held-out run overflow: {hsum['overflow_events']} events, "
+            f"{hrows[-1]['overflow_pairs_acc']} pairs in the run")
+    # The summary's held-out scores come from renders whose overflow it
+    # drops: render the held-out views again at the final budget, require
+    # that nothing was clipped and that they score as the summary says.
+    data, pcd = colmap.load_colmap(tmp / "full_scene", resize_factor=1.0)
+    data = data.shift_cameras(pcd.centering()[1])
+    htrainer = hres.trainer
+    active = gaussians.active_mask(htrainer.state.params.capacity, htrainer.state.num_active)
+    with torch.no_grad():
+        acts = gaussians.activations(htrainer.state.params, active)
+    colors, _, hoverflow = train_flagship.render_views(
+        acts, [data.cameras[i] for i in ids], FULL_SIZE, FULL_SIZE, htrainer.cfg.model.sh_degree,
+        htrainer.cfg.raster, white_background=htrainer.cfg.white_background,
+        active=active)
+    require(not any(hoverflow), f"flagship held-out renders clipped: {hoverflow} pairs a view")
+    rescored = [float(losses.psnr(c, torch.as_tensor(data.images[i]).to(c.device)))
+                for c, i in zip(colors, ids)]
+    require(np.allclose(rescored, hold["psnr_per_view"], rtol=0, atol=1e-4),
+            f"flagship held-out PSNR {hold['psnr_per_view']}, rendered again {rescored}")
+    print(f"train_flagship independent: {FULL_VIEWS} ray-traced views {FULL_SIZE}x{FULL_SIZE}, "
+          f"views {ids} held out, {hsteps} steps (spatial_lr_scale auto, prune_world_scale "
+          f"2.0): train PSNR {hsum['first_psnr']:.3f} -> {hsum['final_psnr']:.3f} dB, held-out "
+          f"PSNR {[round(v, 3) for v in hold['psnr_per_view']]} SSIM "
+          f"{[round(v, 4) for v in hold['ssim_per_view']]} at max_pairs "
+          f"{hsum['final_max_pairs']}; {hsum['mean_it_per_s']:.2f} it/s mean ({hseconds:.2f} s "
+          f"for the call); peak memory {hpeak / 2**30:.3f} GiB; launches {hlaunches} | {gpu}",
+          flush=True)
+    del hres
+    return trainer, {"self_fit": launches, "holdout": hlaunches}
 
 
 def check_band_render(ply_path: Path, data, device) -> None:
@@ -2491,7 +2631,7 @@ def check_golden(device, counters, expect) -> dict:
 def wide_view(size: int, view: int):
     """Orbit view ``view`` of TRAIN_VIEWS at ``size`` x ``size`` pixels, the
     bench focal scaled with it (the field of view of the 800x800 views)."""
-    from gaussiansplattingmlx_tpu_torch.render_cli import orbit_c2w
+    from gaussiansplattingmlx_tpu_torch.utils.camera import orbit_c2w
     from gaussiansplattingmlx_tpu_torch.utils.camera import Camera
 
     focal = FOCAL * size / WIDTH
@@ -3087,6 +3227,14 @@ def main() -> int:
         cli = check_training_buffers(trainer, device,
                                      f"800x800 CLI run's buffers after step {FULL_STEPS}")
         del trainer
+        # 14b. the flagship campaign (train_flagship): the self-fit form at
+        # full width, the independent form on the full-width scene; K2, K1,
+        # K3 and K4 on the self-fit run's last buffers
+        trainer, flagship_launches = run_flagship(Path(tmp), device, counters, expect, gpu)
+        flagship = check_training_buffers(
+            trainer, device, f"flagship self-fit run's buffers after step {FLAGSHIP_STEPS}")
+        del trainer
+        elapsed("flagship")
         # 15. the band render, the data-, tile- and data x tile-parallel
         # steps against one device and their runs through Trainer.run; K1-K4
         # on a 400-row band buffer
@@ -3125,6 +3273,17 @@ def main() -> int:
     raster_fwd.update({f"cli_{k}": cli["raster_fwd"][k] for k in (*timed, "pixel_records")})
     raster_bwd.update({f"cli_{k}": cli["raster_bwd"][k] for k in timed})
     segsum.update({f"cli_{k}": cli["segsum"][k] for k in segsum_keys})
+    # K1-K4 on the flagship self-fit run's last buffers (SH3, tile 16,
+    # densified), and their launches in the flagship runs.
+    merge_gather.update({f"flagship_{k}": flagship["merge_gather"][k] for k in timed})
+    raster_fwd.update({f"flagship_{k}": flagship["raster_fwd"][k]
+                       for k in (*timed, "pixel_records")})
+    raster_bwd.update({f"flagship_{k}": flagship["raster_bwd"][k] for k in timed})
+    segsum.update({f"flagship_{k}": flagship["segsum"][k] for k in segsum_keys})
+    for name, entry in (("merge_gather", merge_gather), ("raster_fwd", raster_fwd),
+                        ("raster_bwd", raster_bwd), ("segsum", segsum)):
+        entry["launches_flagship"] = {run: launched[name]
+                                      for run, launched in flagship_launches.items()}
     # Every kernel's launches in the scatter runs (K4 none) and in the
     # oracle's render and eval_cli run (K5 only, its binning).
     for name, entry in (("merge_gather", merge_gather), ("raster_fwd", raster_fwd),

@@ -54,7 +54,7 @@ from .ops import _kernels, binning, losses, projection
 from .render import render
 from .train.trainer import resolve_device
 from .utils import sh
-from .utils.camera import Camera
+from .utils.camera import Camera, camera_args
 
 # bench.py's camera: focal 1111 at 800 pixels, c2w translated to z = -4.
 FOCAL = 1111.0
@@ -124,12 +124,6 @@ def bench_camera(size: int) -> dict:
     c2w[2, 3] = CAMERA_Z
     focal = FOCAL * size / FOCAL_SIZE
     return Camera.from_c2w(size, size, focal, focal, c2w).tensors()
-
-
-def camera_args(t: dict, device) -> tuple:
-    """``render``'s camera arguments from ``bench_camera``."""
-    return (*(torch.as_tensor(t[k]).to(device) for k in ("view", "proj", "camera_center")),
-            t["fov_x"], t["fov_y"], t["focal_x"], t["focal_y"])
 
 
 @torch.no_grad()

@@ -23,7 +23,7 @@ from .config import RasterizerConfig
 from .data import ply as ply_mod
 from .models.gaussians import activations, params_from_numpy
 from .render import render, render_many, resolve_backend
-from .utils.camera import Camera
+from .utils.camera import Camera, orbit_c2w
 from .utils.gif import write_gif
 from .utils.png import write_png
 
@@ -65,18 +65,6 @@ def parse_args(argv=None):
                    help="torch device to render on (default cuda; a CUDA "
                         "device that is missing is an error)")
     return p.parse_args(argv)
-
-
-def orbit_c2w(angle: float, radius: float, elevation: float) -> np.ndarray:
-    pos = np.array([radius * np.sin(angle), elevation, -radius * np.cos(angle)])
-    fwd = -pos / np.linalg.norm(pos)
-    up = np.array([0.0, 1.0, 0.0])
-    right = np.cross(up, fwd)
-    right /= np.linalg.norm(right)
-    true_up = np.cross(fwd, right)
-    c2w = np.eye(4)
-    c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, true_up, fwd, pos
-    return c2w
 
 
 @dataclasses.dataclass

@@ -1,5 +1,6 @@
-"""Camera model in the reference's row-vector OpenCV convention (numpy only;
-the port's copy of the JAX package's ``utils/camera.py``).
+"""Camera model in the reference's row-vector OpenCV convention (the port's
+copy of the JAX package's ``utils/camera.py``; numpy, but ``camera_args``,
+which hands a camera to ``render`` as torch tensors).
 
 * ``world_view`` = (c2w)^-1 transposed: ``p_view = [x, y, z, 1] @ world_view``;
 * ``proj`` = P^T for the column-vector perspective matrix P (znear 0.1,
@@ -15,6 +16,7 @@ import dataclasses
 import math
 
 import numpy as np
+import torch
 
 
 def fov2focal(fov: float, pixels: float) -> float:
@@ -130,3 +132,23 @@ def spatial_lr_scale_auto(cameras) -> float:
     centroid), for ``OptimizerConfig.spatial_lr_scale``."""
     centers = np.stack([np.asarray(c.tensors()["camera_center"]) for c in cameras])
     return float(1.1 * np.linalg.norm(centers - centers.mean(0), axis=1).max())
+
+
+def orbit_c2w(angle: float, radius: float, elevation: float) -> np.ndarray:
+    """Camera-to-world of a camera at ``angle`` on a ``radius`` orbit around
+    the y axis, at height ``elevation``, looking at the origin."""
+    pos = np.array([radius * np.sin(angle), elevation, -radius * np.cos(angle)])
+    fwd = -pos / np.linalg.norm(pos)
+    up = np.array([0.0, 1.0, 0.0])
+    right = np.cross(up, fwd)
+    right /= np.linalg.norm(right)
+    true_up = np.cross(fwd, right)
+    c2w = np.eye(4)
+    c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, true_up, fwd, pos
+    return c2w
+
+
+def camera_args(t: dict, device) -> tuple:
+    """``render``'s camera arguments from ``Camera.tensors()``."""
+    return (*(torch.as_tensor(t[k]).to(device) for k in ("view", "proj", "camera_center")),
+            t["fov_x"], t["fov_y"], t["focal_x"], t["focal_y"])
