@@ -6,6 +6,11 @@
 Builds the port's CUDA kernels from ``gaussiansplattingmlx_tpu_torch/csrc``
 and checks each against its plain PyTorch version at the shapes of its path:
 
+* the densify noise stream (``utils/prng.py``: JAX's threefry2x32 key,
+  split and ``jax.random.normal`` in plain torch): ``random_bits`` and
+  ``normal`` at [2^20, 3] drawn on the card and on the CPU from one key,
+  the bits bit-equal, the normals at least 99% bit-equal and none more
+  than 4 ulp apart, each draw timed on the card;
 * the port's bench through its entry point (``python -m
   gaussiansplattingmlx_tpu_torch.bench`` at its defaults, in a fresh
   process): the JAX package's bench.py workload (its seed-0 scene of
@@ -50,7 +55,8 @@ and checks each against its plain PyTorch version at the shapes of its path:
   K1, K3, K4 once each), K1, K3 and K4 first checked on its buffers;
 * densify: from the sorted run's state after its 20 steps, the densify step
   (Adam reset) and the prune-only step on the card against the same steps
-  on CPU copies with one draw made on the card (stats, gather map, noise
+  on CPU copies with one draw of the trainer's own noise stream made on the
+  card (stats, gather map, noise
   modes, parameters and moments bit-exact but the xyz and scales of the
   rows a round created), each timed on the card;
 * the densified training run through ``Trainer.run``: 30 steps of the
@@ -206,6 +212,12 @@ SPLIT_FRAMES = 16
 # more pairs.
 DENSE_STEPS = 30
 GRAD_THRESHOLD = 2e-9
+# The densify noise: the draw a round makes at the largest capacity of a
+# default run (2^20 rows, max_gaussians 1,000,000), and the bar the CPU
+# tests hold the draw to against JAX.
+PRNG_SHAPE = (2 ** 20, 3)
+NORMAL_EQUAL_SHARE = 0.99
+NORMAL_MAX_ULP = 4
 DENSE_MAX_GAUSSIANS = 262_144
 DENSIFY = dict(from_iter=10, interval=10, until_iter=20, prune_until_iter=30,
                opacity_reset_interval=15, grad_threshold=GRAD_THRESHOLD)
@@ -1322,6 +1334,34 @@ def require_states_match(got: dict, want: dict, fresh, what: str) -> None:
             require(np.array_equal(bits(g), bits(w)), f"{what}: {k} differs")
 
 
+def check_prng(device, gpu: str) -> None:
+    """The densify noise stream drawn on the card and on the CPU from seed
+    SEED's first densify key at the largest draw a round makes: the bits
+    bit-equal, the normals within the CPU tests' bar against JAX (at least
+    99% of entries bit-equal, none more than 4 ulp apart); each draw timed
+    on the card."""
+    from gaussiansplattingmlx_tpu_torch.utils import prng
+
+    key = prng.split(prng.prng_key(SEED))[1]
+    bits = prng.random_bits(key, PRNG_SHAPE, device)
+    require(torch.equal(bits.cpu(), prng.random_bits(key, PRNG_SHAPE)),
+            "prng: the bits drawn on the card differ from the CPU's")
+    normal = prng.normal(key, PRNG_SHAPE, device)
+    require(bool(torch.isfinite(normal).all()), "prng: non-finite normals")
+    ulp = prng.ulp_distance(normal.cpu(), prng.normal(key, PRNG_SHAPE))
+    equal, worst = int((ulp == 0).sum()), int(ulp.max())
+    require(equal >= NORMAL_EQUAL_SHARE * ulp.numel() and worst <= NORMAL_MAX_ULP,
+            f"prng: {equal} of {ulp.numel()} normals bit-equal to the CPU's, max {worst} ulp")
+    bits_ms = cuda_ms(lambda: prng.random_bits(key, PRNG_SHAPE, device))
+    normal_ms = cuda_ms(lambda: prng.normal(key, PRNG_SHAPE, device))
+    print(f"prng: {list(PRNG_SHAPE)} from key {key.tolist()} (seed {SEED}'s first densify "
+          f"key): bits card == cpu, {bits.numel()} of {bits.numel()} bit-equal; normal "
+          f"{equal} of {ulp.numel()} bit-equal, max {worst} ulp (bars "
+          f"{NORMAL_EQUAL_SHARE:.0%}, {NORMAL_MAX_ULP} ulp), mean {float(normal.mean()):.5f} "
+          f"std {float(normal.std()):.5f}; bits {bits_ms:.4f} ms, normal {normal_ms:.4f} ms "
+          f"(one call between CUDA events) | {gpu}", flush=True)
+
+
 def stats_dict(stats) -> dict:
     return {k: int(v) for k, v in stats._asdict().items()}
 
@@ -1342,8 +1382,9 @@ def densify_ms(step, state, noise) -> float:
 def check_densify(trainer, device) -> None:
     """The densify step (Adam reset) and the prune-only step on the card
     against the same steps on CPU copies, from the sorted run's state after
-    its steps (gradient statistic of TRAIN_STEPS views), with one draw made
-    on the card and copied to the CPU: equal stats, a bit-exact gather map
+    its steps (gradient statistic of TRAIN_STEPS views), with one draw of the
+    trainer's noise stream made on the card and copied to the CPU: equal
+    stats, a bit-exact gather map
     and noise modes, bit-exact parameters and moments but for the fresh
     rows' xyz and scales; each step timed on the card."""
     from gaussiansplattingmlx_tpu_torch import config
@@ -1353,8 +1394,7 @@ def check_densify(trainer, device) -> None:
     cfg = dataclasses.replace(trainer.cfg, densify=config.DensifyConfig(**DENSIFY))
     host = trainer_mod.state_to_numpy(trainer.state)
     cap = trainer.state.params.capacity
-    noise = torch.randn((cap, 3), generator=torch.Generator(device=device).manual_seed(SEED),
-                        device=device)
+    noise = trainer.densify_noise(cap)
     for kind, allow in (("densify", True), ("prune-only", False)):
         step = trainer_mod.make_densify_step(cfg, allow_densify=allow)
         runs = {}
@@ -3018,6 +3058,9 @@ def main() -> int:
     print(f"build: {_kernels.LIBRARY.path.name} in "
           f"{time.perf_counter() - t0:.2f} s ({nvcc_s})"
           f"; ptxas: {' | '.join(ptxas)}", flush=True)
+
+    # 2a. the densify noise stream, card against CPU
+    check_prng(device, gpu)
 
     # 2b. the port's bench (bench.py's workload) through its entry point in a
     # fresh process, then K2, K1, K3 and K4 on its first-step buffers

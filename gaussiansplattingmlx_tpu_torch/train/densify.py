@@ -21,8 +21,8 @@ capacity, densification is off for that round (keep and prune only); the
 trainer grows the capacity between rounds.
 
 ``noise`` is the [capacity, 3] standard-normal draw that the JAX package
-makes inside its function from a PRNG key; torch cannot reproduce that
-stream, so the caller passes the draw.
+makes inside its function from a PRNG key; here the caller passes it
+(``Trainer.densify_noise`` draws JAX's stream through ``utils/prng.py``).
 """
 
 from __future__ import annotations

@@ -48,6 +48,7 @@ from ..ops import _kernels
 from ..ops import losses as losses_mod
 from ..parallel import multihost, sharding
 from ..render import render as render_fn
+from ..utils import prng
 from ..utils.chart import two_axis_chart
 from ..utils.png import write_png
 from ..utils.point_cloud import PointCloud
@@ -380,8 +381,9 @@ class Trainer:
     rounds and capacity growth, opacity resets, log lines, pair-budget
     auto-grow/shrink, early stop and checkpoints.  ``device`` defaults to
     ``cuda``; pass ``"cpu"`` to train on the CPU with the kernels' plain
-    versions.  The densify noise comes from a ``torch.Generator`` on the
-    device, seeded with ``config.seed`` (``densify_noise``)."""
+    versions.  The densify noise is the JAX package's stream: a threefry2x32
+    key from ``config.seed`` (``utils/prng.py``), split once a densify or
+    prune-only round, drawn on the device (``densify_noise``)."""
 
     def __init__(self, config: TrainConfig, data: TrainData,
                  point_cloud: PointCloud, device="cuda", mesh=None,
@@ -455,7 +457,7 @@ class Trainer:
         else:
             self.views = stack_views(data, dev)
         self.out_dir = Path(config.output_dir)
-        self.noise_gen = torch.Generator(device=dev).manual_seed(config.seed)
+        self.key = prng.prng_key(config.seed)
         cam_centers = None
         if config.densify.prune_near_cameras > 0:
             cam_centers = torch.stack([
@@ -612,10 +614,16 @@ class Trainer:
         self._pairs_peak = 0.0
         self._pairs_obs = 0
 
+    def next_key(self) -> np.ndarray:
+        """Split the key as the JAX trainer does: keep the first half, return
+        the second."""
+        self.key, sub = prng.split(self.key)
+        return sub
+
     def densify_noise(self, capacity: int) -> torch.Tensor:
-        """The [capacity, 3] standard-normal draw of one densify round."""
-        return torch.randn((capacity, 3), generator=self.noise_gen, dtype=torch.float32,
-                           device=self.device)
+        """The [capacity, 3] standard-normal draw of one densify round: JAX's
+        ``jax.random.normal(next_key(), (capacity, 3))``."""
+        return prng.normal(self.next_key(), (capacity, 3), self.device)
 
     def run(self, iterations: Optional[int] = None,
             on_metrics: Optional[Callable] = None) -> Dict:
@@ -745,22 +753,23 @@ class Trainer:
         if not self.is_writer:
             return
         checkpoint.save(self.out_dir / f"ckpt_{iteration}.npz", self.state, self.cfg,
-                        host_rng=self.rng, generator=self.noise_gen)
+                        host_rng=self.rng, key=self.key)
 
     def restore_checkpoint(self, path) -> None:
-        """Resume from a checkpoint of either package.  The camera sequence
-        replays; the densify noise replays only from a checkpoint the port
-        wrote on this kind of device."""
+        """Resume from a checkpoint of either package: the camera sequence
+        and the densify noise replay.  A port checkpoint older than the key
+        (no ``jax_key``) restarts the key from the seed."""
         from . import checkpoint
 
-        self.state, host_rng, gen_state = checkpoint.load(path, self.device)
+        self.state, host_rng, key = checkpoint.load(path, self.device)
         if host_rng is not None:
             self.rng = host_rng
-        if gen_state is not None:
-            self.noise_gen.set_state(gen_state)
+        if key is not None:
+            self.key = key
         else:
-            print(f"NOTE: {path} holds no torch generator state for a {self.device.type} "
-                  "generator: the densify noise will not replay the saved run's",
+            self.key = prng.prng_key(self.cfg.seed)
+            print(f"NOTE: {path} holds no densify noise key (jax_key): the key restarts "
+                  "from the seed and the noise will not replay the saved run's",
                   file=sys.stderr, flush=True)
         # Overflow accumulated before the checkpoint was handled then.
         self._overflow_handled = float(self.state.overflow_acc[0])

@@ -4,11 +4,11 @@ a capacity growth, a pair-budget growth and an opacity reset, on the
 independent form's kind of scene: ``scripts/make_vendor_scene.py --rich``
 with its sky dome, cut to 12 views at 32x32.
 
-The two runs cannot replay each other's densify noise on their own (JAX
-draws it from a key, the port from a ``torch.Generator``), so the port's
-``Trainer.densify_noise`` is replaced here by JAX's draw: ``PRNGKey(seed)``
-split once a round, as the JAX trainer's ``next_key`` does.  The two
-sides then differ only by float rounding, which already moves single rows
+Both sides draw the same densify noise, each on its own: ``PRNGKey(seed)``
+split once a round and ``jax.random.normal`` of the half it hands out, the
+port through ``utils/prng.py`` (its first draw is held to JAX's here at the
+normal draw's tolerance, its key after the run to JAX's after as many
+splits).  The two sides then differ only by float rounding, which already moves single rows
 apart before step 500 (``test_torch_flagship.py``), and lets a threshold
 decide a few Gaussians differently at a densify round.  So the discrete
 events are held equal (capacity, budget, the pairs the first 50 steps
@@ -20,6 +20,7 @@ within 1 dB PSNR and 0.02 SSIM."""
 
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -29,8 +30,10 @@ import torch
 
 import torch_port_helpers  # noqa: F401  (caps torch at two CPU threads)
 from test_torch_flagship import ROOT, finish, read_rows, read_summary, start_jax
+from torch_port_helpers import assert_normal_matches
 from gaussiansplattingmlx_tpu_torch import train_flagship
 from gaussiansplattingmlx_tpu_torch.train.trainer import Trainer
+from gaussiansplattingmlx_tpu_torch.utils import prng
 
 SCENE = ["--width", "32", "--height", "32", "--views", "12", "--points", "4000",
          "--sky-points", "500", "--rich"]
@@ -43,14 +46,15 @@ FLAGS = ["--holdout", "2", "--iters", "650", "--sh-degree", "3", "--densify-unti
          "--spatial-lr-scale", "auto", "--init-points", "512", "--initial-capacity", "512",
          "--max-pairs", "1024", "--max-pairs-limit", "65536"]
 FIRST_DENSIFY = 500
+ROUNDS = 2  # densify at 500 and 600
 ACTIVE_RTOL = 0.02
 MEAN_LOSS_RTOL = 0.05
 HOLDOUT_PSNR_ATOL_DB, HOLDOUT_SSIM_ATOL = 1.0, 0.02
 
 
 def jax_noise_draws(seed: int):
-    """``Trainer.densify_noise`` drawing what the JAX trainer draws: one
-    split of ``PRNGKey(seed)`` a round, a [capacity, 3] standard normal."""
+    """What the JAX trainer draws a densify round: one split of
+    ``PRNGKey(seed)`` a round, a [capacity, 3] standard normal."""
     key = [jax.random.PRNGKey(seed)]
 
     def densify_noise(self, capacity: int) -> torch.Tensor:
@@ -59,6 +63,15 @@ def jax_noise_draws(seed: int):
         return torch.from_numpy(draw).to(self.device)
 
     return densify_noise
+
+
+def test_first_draw_is_jax_draw():
+    """The Trainer's own first densify draw for seed 0 (its ``next_key`` and
+    ``densify_noise`` on a fresh key) against the JAX trainer's."""
+    fresh = SimpleNamespace(key=prng.prng_key(0), device=torch.device("cpu"))
+    fresh.next_key = lambda: Trainer.next_key(fresh)
+    want = jax_noise_draws(0)(fresh, 512)
+    assert_normal_matches(Trainer.densify_noise(fresh, 512), want)
 
 
 @pytest.fixture(scope="module")
@@ -70,9 +83,7 @@ def runs(tmp_path_factory):
     args = ["--dataset-root", str(scene), *FLAGS]
     proc = start_jax(base / "jax", args)
     try:
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(Trainer, "densify_noise", jax_noise_draws(0))
-            port = train_flagship.run([*args, "--out", str(base / "port"), "--device", "cpu"])
+        port = train_flagship.run([*args, "--out", str(base / "port"), "--device", "cpu"])
     except BaseException:
         proc.kill()
         raise
@@ -83,6 +94,10 @@ def runs(tmp_path_factory):
 def test_past_densify_and_reset_matches_jax(runs):
     port_out, jax_out, port = runs
     assert port.trainer.cfg.densify.from_iter == FIRST_DENSIFY
+    key = jax.random.PRNGKey(0)
+    for _ in range(ROUNDS):
+        key, _ = jax.random.split(key)
+    np.testing.assert_array_equal(port.trainer.key, np.asarray(key))
     rows, jax_rows = read_rows(port_out), read_rows(jax_out)
     hold, jax_hold = read_summary(port_out)["holdout"], read_summary(jax_out)["holdout"]
     after = [r for r in rows if r["iteration"] > FIRST_DENSIFY]

@@ -313,10 +313,11 @@ TRAINER_DENSIFY = dict(interval=3, from_iter=3, until_iter=3, grad_threshold=1e-
 
 def test_trainer_two_ranks_densify_matches_jax(scene):
     """A 2-rank Trainer (data_parallel=2) with one densify round against the
-    JAX package's Trainer on a (2, 1) mesh, from its initial state and with
-    its densify draws: the same view pairs every step, the same live
-    counts, losses within rtol 1e-4, parameters within 7 lr a step, the
-    state bit-identical on both ranks."""
+    JAX package's Trainer on a (2, 1) mesh, from its initial state, each
+    side drawing its own densify noise (the same stream): the same view
+    pairs every step, the same live counts, losses within rtol 1e-4,
+    parameters within 7 lr a step, the state bit-identical on both ranks,
+    each rank's key JAX's."""
     from gaussiansplattingmlx_tpu import config as jax_config
 
     pts, cols, images = scene["pts"], scene["cols"], scene["data"].images
@@ -331,10 +332,6 @@ def test_trainer_two_ranks_densify_matches_jax(scene):
     jt = jax_trainer.Trainer(jcfg, scene["jdata"], JaxPointCloud(noisy, cols * 255.0),
                              mesh=mesh)
     state_np = _jax_state_arrays(jt.state)
-    key = jax.random.PRNGKey(jcfg.seed)
-    _, sub = jax.random.split(key)
-    noise = [np.asarray(jax.random.normal(sub, (jt.state.params.capacity, 3),
-                                          dtype=jnp.float32))]
     seen = []
     jstep = jt.train_step
 
@@ -352,9 +349,10 @@ def test_trainer_two_ranks_densify_matches_jax(scene):
                    densify=config.DensifyConfig(**TRAINER_DENSIFY),
                    parallel=config.ParallelConfig(data_parallel=2))
     got, reports = launch.spawn(workers.trainer_run, 2, args=(
-        cfg, scene["data"], PointCloud(noisy, cols * 255.0), state_np, noise), **SPAWN)
+        cfg, scene["data"], PointCloud(noisy, cols * 255.0), state_np), **SPAWN)
     assert [list(v) for v in zip(*(r["views"] for r in reports))] == seen
     assert reports[0]["digest"] == reports[1]["digest"]
+    assert reports[0]["key"] == reports[1]["key"] == np.asarray(jt.key).tolist()
     tlog = got["history"]
     assert [m["iteration"] for m in tlog] == list(range(1, TRAINER["iterations"] + 1))
     assert [m["num_active"] for m in tlog] == [m["num_active"] for m in jlog]

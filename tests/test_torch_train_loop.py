@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from torch_port_helpers import CHUNK, TILE, to_numpy
+from torch_port_helpers import CHUNK, TILE, assert_normal_matches, to_numpy
 
 from gaussiansplattingmlx_tpu import config as jax_config
 from gaussiansplattingmlx_tpu.data.dataset import TrainData as JaxTrainData
@@ -28,6 +28,7 @@ from gaussiansplattingmlx_tpu_torch.data.dataset import TrainData
 from gaussiansplattingmlx_tpu_torch.models import gaussians
 from gaussiansplattingmlx_tpu_torch.render import render
 from gaussiansplattingmlx_tpu_torch.train import checkpoint, trainer
+from gaussiansplattingmlx_tpu_torch.utils import prng
 from gaussiansplattingmlx_tpu_torch.utils.camera import Camera
 from gaussiansplattingmlx_tpu_torch.utils.point_cloud import PointCloud
 
@@ -124,7 +125,8 @@ def _margins(avg, max_scale, op):
 def test_trainer_densify_rounds_match_jax(scene):
     """Two densify rounds and a prune-only round, a capacity growth, ten
     logged steps: the port's Trainer against the JAX package's, from the
-    JAX trainer's initial state and with its densify draws."""
+    JAX trainer's initial state, each drawing its own densify noise (the
+    same stream: one split of ``PRNGKey(seed)`` a round)."""
     iters = 10
     jt = _jax_trainer(scene, iterations=iters, init_points=30,
                       model=jax_config.ModelConfig(**LOOP_MODEL),
@@ -135,14 +137,6 @@ def test_trainer_densify_rounds_match_jax(scene):
     # The same initial state (the two kNN initialisations agree to ~1e-5).
     tt.state = trainer.state_from_numpy(_jax_state_arrays(jt.state), "cpu")
 
-    keys = [jax.random.PRNGKey(tt.cfg.seed)]
-
-    def jax_draw(capacity):
-        keys[0], sub = jax.random.split(keys[0])
-        return torch.as_tensor(np.array(jax.random.normal(sub, (capacity, 3),
-                                                          dtype=jnp.float32)))
-
-    tt.densify_noise = jax_draw
     rounds = {"jax": [], "port": []}
 
     def record(fn, side, host):
@@ -166,6 +160,7 @@ def test_trainer_densify_rounds_match_jax(scene):
     tt.run(on_metrics=tlog.append)
 
     assert len(rounds["jax"]) == len(rounds["port"]) == 3
+    np.testing.assert_array_equal(tt.key, np.asarray(jt.key))  # three splits each
     for (js, jm, jcap), (ts, tm, tcap) in zip(rounds["jax"], rounds["port"]):
         assert js == ts and jcap == tcap
         assert jm >= 0.01 and tm >= 0.01, (jm, tm)
@@ -234,8 +229,8 @@ def test_jax_checkpoint_loads_in_port(scene, tmp_path, capsys):
     jt.run(iterations=3)
     jt.save_checkpoint(3)
     path = tmp_path / "ckpt_3.npz"
-    state, host_rng, gen_state = checkpoint.load(path, "cpu")
-    assert gen_state is None
+    state, host_rng, key = checkpoint.load(path, "cpu")
+    np.testing.assert_array_equal(key, np.asarray(jt.key))  # split once, at step 2
     got, want = trainer.state_to_numpy(state), _jax_state_arrays(jt.state)
     assert set(got) == set(want)
     for k in want:
@@ -250,8 +245,14 @@ def test_jax_checkpoint_loads_in_port(scene, tmp_path, capsys):
                        model=config.ModelConfig(**LOOP_MODEL),
                        densify=config.DensifyConfig(**PERSIST_DENSIFY))
     tt.restore_checkpoint(path)
-    assert "densify noise will not replay" in capsys.readouterr().err
+    assert "will not replay" not in capsys.readouterr().err
     assert int(tt.state.step) == 3
+    # The port's next densify draw is the JAX trainer's.
+    restored = tt.key.copy()
+    draw = tt.densify_noise(tt.state.params.capacity)
+    assert_normal_matches(draw, jax.random.normal(jt.next_key(), (64, 3), jnp.float32))
+    np.testing.assert_array_equal(tt.key, np.asarray(jt.key))
+    tt.key = restored
     log = []
     tt.run(on_metrics=log.append)
     assert [m["iteration"] for m in log] == [4, 5, 6]
@@ -267,7 +268,7 @@ def test_port_checkpoint_loads_in_jax(scene, tmp_path):
     tt.save_checkpoint(3)
     path = tmp_path / "ckpt_3.npz"
     state, host_rng, jax_key = jax_checkpoint.load(path)
-    assert jax_key is None
+    np.testing.assert_array_equal(np.asarray(jax_key), tt.key)
     got, want = _jax_state_arrays(state), trainer.state_to_numpy(tt.state)
     assert set(got) == set(want)
     for k in want:
@@ -276,6 +277,66 @@ def test_port_checkpoint_loads_in_jax(scene, tmp_path):
     assert host_rng.integers(0, 1 << 30, size=8).tolist() == \
         tt.rng.integers(0, 1 << 30, size=8).tolist()
     assert dataclasses.asdict(jax_checkpoint.load_config(path)) == dataclasses.asdict(tt.cfg)
+
+
+def test_port_checkpoint_key_resumes_jax_noise(scene, tmp_path):
+    """The JAX trainer resuming a port checkpoint adopts the port's key (two
+    rounds in) and draws the port's next densify noise."""
+    tt = _port_trainer(scene, iterations=6, init_points=30, output_dir=str(tmp_path),
+                       model=config.ModelConfig(**LOOP_MODEL),
+                       densify=config.DensifyConfig(**PERSIST_DENSIFY))
+    tt.run(iterations=5)
+    tt.save_checkpoint(5)
+    np.testing.assert_array_equal(tt.key, prng.split(prng.split(prng.prng_key(0))[0])[0])
+    jt = _jax_trainer(scene, iterations=6, init_points=30,
+                      model=jax_config.ModelConfig(**LOOP_MODEL),
+                      densify=jax_config.DensifyConfig(**PERSIST_DENSIFY))
+    jt.restore_checkpoint(str(tmp_path / "ckpt_5.npz"))
+    np.testing.assert_array_equal(np.asarray(jt.key), tt.key)
+    cap = tt.state.params.capacity
+    assert_normal_matches(tt.densify_noise(cap),
+                          jax.random.normal(jt.next_key(), (cap, 3), jnp.float32))
+
+
+def test_checkpoint_without_key_restarts_from_seed(scene, tmp_path, capsys):
+    """A port checkpoint written before the key was kept (no ``jax_key``)
+    still loads; the key restarts from the seed and a NOTE says the noise
+    will not replay."""
+    tt = _port_trainer(scene, iterations=4, init_points=30, output_dir=str(tmp_path),
+                       model=config.ModelConfig(**LOOP_MODEL),
+                       densify=config.DensifyConfig(**PERSIST_DENSIFY))
+    tt.run(iterations=3)
+    tt.save_checkpoint(3)
+    with np.load(tmp_path / "ckpt_3.npz") as z:
+        old = {k: z[k] for k in z.files if k != "jax_key"}
+    np.savez(tmp_path / "old.npz", **old)
+    state, host_rng, key = checkpoint.load(tmp_path / "old.npz", "cpu")
+    assert key is None and host_rng is not None and int(state.step) == 3
+    resumed = _port_trainer(scene, iterations=4, init_points=30,
+                            model=config.ModelConfig(**LOOP_MODEL),
+                            densify=config.DensifyConfig(**PERSIST_DENSIFY))
+    resumed.next_key()
+    resumed.restore_checkpoint(tmp_path / "old.npz")
+    assert "the noise will not replay" in capsys.readouterr().err
+    np.testing.assert_array_equal(resumed.key, prng.prng_key(resumed.cfg.seed))
+    resumed.run()
+    assert int(resumed.state.step) == 4
+
+
+@pytest.mark.parametrize("impl", ["threefry2x32", "rbg"])
+def test_checkpoint_key_impl(scene, tmp_path, impl):
+    """A typed JAX key loads when its impl is threefry2x32 (its key data);
+    any other impl raises, naming it."""
+    jt = _jax_trainer(scene, iterations=1, init_points=30)
+    typed = jax.random.key(5, impl=impl)
+    jax_checkpoint.save(tmp_path / "c.npz", jt.state, jax_key=typed)
+    if impl == "threefry2x32":
+        _, _, key = checkpoint.load(tmp_path / "c.npz", "cpu")
+        np.testing.assert_array_equal(key, np.asarray(jax.random.key_data(typed)))
+        np.testing.assert_array_equal(key, prng.prng_key(5))
+    else:
+        with pytest.raises(ValueError, match="rbg"):
+            checkpoint.load(tmp_path / "c.npz", "cpu")
 
 
 def test_resume_bit_equivalence(scene, tmp_path):
@@ -306,7 +367,7 @@ def test_resume_bit_equivalence(scene, tmp_path):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     tail = [(m["iteration"], m["loss"], m["num_active"]) for m in full.history[3:]]
     assert [(m["iteration"], m["loss"], m["num_active"]) for m in resumed.history] == tail
-    assert torch.equal(resumed.noise_gen.get_state(), full.noise_gen.get_state())
+    np.testing.assert_array_equal(resumed.key, full.key)
 
 
 def test_restore_adopts_larger_saved_max_pairs(scene, tmp_path):

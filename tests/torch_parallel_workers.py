@@ -53,16 +53,14 @@ def steps(cfg, width, height, views_np, state_np, runs):
     return out, {}
 
 
-def trainer_run(cfg, data, point_cloud, state_np, noise):
+def trainer_run(cfg, data, point_cloud, state_np):
     """A Trainer of this group's ranks (``cfg.parallel``) from the state
-    ``state_np``, its densify draws taken from ``noise`` (one [capacity, 3]
-    array a round), run to ``cfg.iterations``.  Returns the logged metrics,
-    the final state and every rank's own sequence of view ids."""
+    ``state_np``, drawing its own densify noise, run to ``cfg.iterations``.
+    Returns the logged metrics, the final state, and every rank's own
+    sequence of view ids and final noise key."""
     torch.set_num_threads(1)
     tr = trainer_mod.Trainer(cfg, data, point_cloud, device="cpu")
     tr.state = trainer_mod.state_from_numpy(state_np, "cpu")
-    draws = iter(noise)
-    tr.densify_noise = lambda capacity: torch.as_tensor(next(draws)[:capacity])
     seen = []
     step = tr.train_step
 
@@ -74,4 +72,5 @@ def trainer_run(cfg, data, point_cloud, state_np, noise):
     history = []
     tr.run(on_metrics=history.append)
     return ({"history": history, "state": trainer_mod.state_to_numpy(tr.state)},
-            {"views": seen, "digest": sharding.state_digest(tr.state).tolist()})
+            {"views": seen, "digest": sharding.state_digest(tr.state).tolist(),
+             "key": tr.key.tolist()})

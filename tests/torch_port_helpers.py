@@ -26,6 +26,28 @@ def to_numpy(x):
     return x.detach().cpu().numpy()
 
 
+# jax.random.normal against utils/prng.normal: XLA's CPU erfinv is followed
+# step by step, so nearly every entry is bit-equal; the bar leaves room for
+# a last-bit difference in a few entries and bounds every one.
+NORMAL_EQUAL_SHARE = 0.99
+NORMAL_MAX_ULP = 4
+
+
+def assert_normal_matches(got, want):
+    """``got`` (torch) against ``want`` (a JAX or numpy float32 array) at the
+    normal draw's tolerance: at least 99% of entries bit-equal, none more
+    than 4 ulp apart."""
+    from gaussiansplattingmlx_tpu_torch.utils import prng
+
+    want = torch.as_tensor(np.array(want, np.float32))
+    got = got.detach().cpu()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    ulp = prng.ulp_distance(got, want)
+    share = float((ulp == 0).double().mean())
+    assert share >= NORMAL_EQUAL_SHARE and int(ulp.max()) <= NORMAL_MAX_ULP, \
+        (share, int(ulp.max()))
+
+
 def require_cuda():
     """Skip the calling test unless a CUDA device is present (decided at run
     time, never at import or collection)."""
