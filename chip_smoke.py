@@ -210,6 +210,11 @@ SPLIT_FRAMES = 16
 # capacity grows to 262,144; DENSE_MAX_GAUSSIANS keeps it there.  The pair
 # budget is the probe peak times DENSE_HEADROOM: the densified steps render
 # more pairs.
+# The truncated phase: view 0 of the training setup at this share of its
+# pair demand (in 512-slot quanta), the budget also its limit, for this
+# many steps of Trainer.run.
+TRUNCATE_SHARE = 0.5
+TRUNCATE_STEPS = 2
 DENSE_STEPS = 30
 GRAD_THRESHOLD = 2e-9
 # The densify noise: the draw a round makes at the largest capacity of a
@@ -1148,7 +1153,7 @@ def check_layout_buffers(trainer, layout):
 
 
 def check_training_buffers(trainer, device, label="training buffers, first step", view=0,
-                           band=None):
+                           band=None, truncated=False):
     """K2, K1, K3 and K4 on the buffers of the trainer's next step
     (``check_step_buffers``): its tile, pair budget and capacity, its
     current parameters (the initial ones before its run), view ``view``
@@ -1160,10 +1165,10 @@ def check_training_buffers(trainer, device, label="training buffers, first step"
     if band is not None:
         target = target[band[1]:band[1] + band[0]]
     return check_step_buffers(args, st, target, trainer.state.params.capacity,
-                              f"{label}, max_pairs {cfg.max_pairs}")
+                              f"{label}, max_pairs {cfg.max_pairs}", truncated=truncated)
 
 
-def check_step_buffers(args, st, target, capacity, what, early_exit=False):
+def check_step_buffers(args, st, target, capacity, what, early_exit=False, truncated=False):
     """K2, K1, K3 and K4 against their plain versions on one training step's
     buffers: the staging inputs ``args`` at the statics ``st`` (tile, pair
     budget), ``capacity`` rows and the L1 + SSIM cotangent against
@@ -1173,7 +1178,8 @@ def check_step_buffers(args, st, target, capacity, what, early_exit=False):
     bars counted.  Returns the kernels line's entries for K2, K1, K3 and
     K4, timed on these buffers (the shapes their path gives them).  Above ``staging.K2_MAX_SLOTS`` the
     path merges through K5, not K2: K2 is left out (its entry None), and K5
-    is checked by ``check_merge_ranks``."""
+    is checked by ``check_merge_ranks``.  The buffers must not overflow
+    unless ``truncated``, and then must fill the budget and drop pairs."""
     from gaussiansplattingmlx_tpu_torch.ops import rasterize_cuda, staging
 
     with torch.no_grad():
@@ -1183,7 +1189,11 @@ def check_step_buffers(args, st, target, capacity, what, early_exit=False):
             merge = merge_gather_entry(e.cum_keep, tbl, st.max_pairs, what)
             del e, tbl
         sp, gid = staging._stage_train_impl(st, *args)
-    require(int(sp.overflow_pairs) == 0, "training buffers overflow")
+    if truncated:
+        require(int(sp.overflow_pairs) > 0 and int(sp.num_pairs) == st.max_pairs,
+                f"training buffers must fill the budget and drop pairs ({what})")
+    else:
+        require(int(sp.overflow_pairs) == 0, "training buffers overflow")
     tile = st.tile_w
     grid = (-(-st.image_width // tile), -(-st.image_height // tile))
     fwd = check_fwd((sp.records_cm, sp.tile_start, sp.tile_count, *grid, tile, tile), what)
@@ -1421,6 +1431,72 @@ def check_densify(trainer, device) -> None:
               f"gather map and noise modes bit-exact, parameters and moments bit-exact but "
               f"{int(fresh.sum())} fresh rows' xyz/scales (max abs err {err:.3g}); "
               f"{ms:.4f} ms device time (one call, CUDA events)", flush=True)
+
+
+def run_truncated(ply_path: Path, data, device, counters, expect, gpu: str):
+    """The training setup on view 0 with its pair budget, and the budget's
+    limit, cut to TRUNCATE_SHARE of that view's demand, as the flagship's
+    runs train hundreds of steps at their limit: K2, K1, K3 and K4 against
+    their plain versions on the first step's own buffers (two launches
+    bit-identical); then TRUNCATE_STEPS steps through Trainer.run, counters
+    zeroed just before, each of the four kernels launched once a step, the
+    first step's overflow counts equal to the plain expansion's on CPU
+    copies of its inputs, and the at-limit branch taken: a warning each
+    logged step and no growth.  Returns (the kernels line's entries for K2,
+    K1, K3 and K4, the run's launches)."""
+    import contextlib
+    import io
+
+    from gaussiansplattingmlx_tpu_torch.data.dataset import TrainData
+    from gaussiansplattingmlx_tpu_torch.ops import binning
+
+    view0 = TrainData(cameras=data.cameras[:1], images=data.images[:1])
+    trainer = make_trainer(ply_path, view0, device,
+                           train={"iterations": TRUNCATE_STEPS, "log_interval": 1})
+    (_, rect_min, rect_max, radii, _), st = first_step_geometry(trainer)
+    with torch.no_grad():
+        plain = binning.expand_pairs(rect_min.cpu(), rect_max.cpu(), radii.cpu(), WIDTH, HEIGHT,
+                                     st.tile_w, st.tile_h, 2 ** 30)
+    demand = int(plain.num_pairs)
+    budget = int(demand * TRUNCATE_SHARE) // 512 * 512
+    with torch.no_grad():
+        plain = binning.expand_pairs(rect_min.cpu(), rect_max.cpu(), radii.cpu(), WIDTH, HEIGHT,
+                                     st.tile_w, st.tile_h, budget)
+    want = [int(plain.num_pairs), int(plain.overflow_pairs), int(plain.overflow_gaussians)]
+    require(want[0] == budget and want[1] == demand - budget and want[2] > 0,
+            f"truncated: plain expansion {want} at budget {budget} of demand {demand}")
+    trainer.cfg = dataclasses.replace(trainer.cfg, raster=dataclasses.replace(
+        trainer.cfg.raster, max_pairs_limit=budget))
+    trainer.set_max_pairs(budget)
+    what = (f"truncated step, view 0 at {budget} of its {demand} pairs, {want[2]} gaussians "
+            f"losing pairs")
+    entries = check_training_buffers(trainer, device, what, truncated=True)
+
+    for k in counters.values():
+        k.launches = 0
+    log, err = [], io.StringIO()
+    with contextlib.redirect_stderr(err):
+        trainer.run(on_metrics=log.append)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in counters.items()}
+    sys.stderr.write(err.getvalue())
+    steps = TRUNCATE_STEPS
+    require(launches == expect(merge_gather=steps, raster_fwd=steps, raster_bwd=steps,
+                               segsum=steps), f"truncated: launches {launches}")
+    got = [int(log[0][k]) for k in ("num_pairs", "overflow_pairs", "overflow_gaussians")]
+    require(got == want, f"truncated: the step's counts {got}, the plain expansion's {want}")
+    require(all(np.isfinite(m["loss"]) and m["overflow_pairs"] > 0 for m in log),
+            f"truncated: {log}")
+    warned = err.getvalue().count(f"but max_pairs_limit reached (max_pairs={budget})")
+    require(warned == steps and "growing max_pairs" not in err.getvalue()
+            and trainer.cfg.raster.max_pairs == budget,
+            f"truncated: {warned} limit warnings, max_pairs {trainer.cfg.raster.max_pairs}")
+    print(f"truncated: {steps} sorted steps of {N_GAUSSIANS} gaussians on view 0 at "
+          f"max_pairs = max_pairs_limit = {budget} ({TRUNCATE_SHARE} of its {demand} pairs); "
+          f"first step num_pairs / overflow pairs / overflow gaussians {got} = the plain "
+          f"expansion's; the limit warning on each of {steps} logged steps, no growth; loss "
+          f"{[round(m['loss'], 5) for m in log]}; launches {launches} | {gpu}", flush=True)
+    return entries, launches
 
 
 def dense_config(out_dir) -> dict:
@@ -3144,6 +3220,11 @@ def main() -> int:
         # run's state
         check_densify(trainer, device)
         del trainer
+        # 6c. one sorted step at half of view 0's pair demand, the budget at
+        # its limit: K2, K1, K3 and K4 on its buffers, its overflow counts,
+        # the Trainer's at-limit branch
+        truncated, trunc_launches = run_truncated(ply_path, data, device, counters, expect, gpu)
+        elapsed("truncated")
 
         # 7. the non-default layouts' training runs, at the same pair budget;
         # K1 checked and K6 and K7 checked and timed on the aligned run's own
@@ -3371,6 +3452,17 @@ def main() -> int:
         entry["launches_parallel"] = {
             **{run: [r[name] for r in launched] for run, launched in par["runs"].items()},
             **{run: [r[name] for r in e["launches"]] for run, e in cli_par.items()}}
+
+    # K2, K1, K3 and K4 on the truncated step's buffers (tile 32, half of
+    # view 0's demand), and their launches in its run.
+    for name, entry in (("merge_gather", merge_gather), ("raster_fwd", raster_fwd),
+                        ("raster_bwd", raster_bwd), ("segsum", segsum)):
+        keys = (*timed, "bound_by", "library_ms")
+        if name == "segsum":
+            keys += ("segments",)
+        entry.update({f"truncated_{k}": truncated[name][k] for k in keys})
+        entry["truncated_launches"] = trunc_launches[name]
+    raster_fwd["truncated_pixel_records"] = truncated["raster_fwd"]["pixel_records"]
 
     # K2, K1, K3 and K4 on the bench workload's first-step buffers (tile 32,
     # its probed budget), and their launches in the bench's timed steps.

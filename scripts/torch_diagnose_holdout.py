@@ -7,9 +7,11 @@ under Gaussian-subset ablations to find what hazes novel views
 
 Each ablation prints the PSNR of every view and their mean, as
 ``scripts/diagnose_holdout.py`` prints them; the mechanism is whichever cull
-recovers the most dB.  Ablations zero the opacity of the culled rows (or
-the SH coefficients above a degree) instead of dropping them, so every
-render has the same shapes.  ``--device`` defaults to ``cuda``; a missing
+recovers the most dB.  A line before them gives the sky dome's (r > 5)
+Gaussians, mean opacity and mean SH-rest energy (sum of the squared
+higher-band coefficients) beside the rest's.  Ablations zero the opacity
+of the culled rows (or the SH coefficients above a degree) instead of
+dropping them, so every render has the same shapes.  ``--device`` defaults to ``cuda``; a missing
 card is an error.  Imports torch, numpy and the port (no JAX).
 """
 
@@ -68,6 +70,16 @@ def main(argv=None) -> dict:
     r = np.linalg.norm(means_np, axis=1)
     smax = scales.cpu().numpy().max(axis=1)
     op_np = opacity.cpu().numpy()[:, 0]
+    rest_energy = (params.features_rest.detach().cpu().numpy().reshape(n, -1) ** 2).sum(axis=1)
+    dome = r > 5.0
+
+    def mean(x):
+        return float(x.mean()) if x.size else float("nan")
+
+    print(f"sky dome (r > 5): {int(dome.sum())} of {n} Gaussians, mean opacity "
+          f"{mean(op_np[dome]):.4f}, mean SH-rest energy {mean(rest_energy[dome]):.4f}; "
+          f"the rest: opacity {mean(op_np[~dome]):.4f}, SH-rest energy "
+          f"{mean(rest_energy[~dome]):.4f}", flush=True)
 
     cam_pos = np.stack([np.asarray(c.tensors()["camera_center"]).reshape(3)
                         for c in data.cameras])

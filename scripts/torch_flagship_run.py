@@ -19,6 +19,12 @@ the wall time a step, and one more runs under
 report's ``tail`` is the train PSNR / SSIM over the last 20 logged rows (the
 JAX records' measure).  A run cut short resumes from the checkpoints in
 ``--out`` with ``--resume``.
+
+``--compare LOG REF`` prints two metrics.jsonl logs side by side at the
+iterations both have (``compare_rows``: Gaussians, pair demand, loss, the
+rows that truncate or spike), e.g. a port run beside the JAX package's
+round-3 run (``artifacts/round3/flagship_vendor/metrics.jsonl``), and trains
+nothing.
 Imports torch, numpy and the port (no JAX).
 """
 
@@ -45,6 +51,9 @@ MEMORY_SAMPLE_S = 30.0
 # (BASELINE.md's flagship row); each row is one training view.
 TAIL_ROWS = 20
 PROFILE_STEPS = 3
+# A logged row whose loss exceeds this is a spike (the flagship's rows sit
+# at 0.05-0.3 once past the first few hundred steps).
+SPIKE_LOSS = 0.5
 
 
 def gpu_line() -> str:
@@ -103,14 +112,73 @@ def step_profile(trainer, steps: int) -> dict:
             "num_active": int(trainer.state.num_active)}
 
 
+def demand(row: dict) -> int:
+    """A logged step's pair demand: the pairs it staged plus those its
+    budget dropped."""
+    return int(row["num_pairs"] + row.get("overflow_pairs", 0))
+
+
+def compare_rows(rows: list, ref_rows: list) -> list:
+    """Two runs' logged rows at the iterations both have: for each, the
+    iteration and (run, reference) pairs of Gaussians, pair demand, pair
+    budget and loss, and whether the row truncated (dropped pairs) or
+    spiked (loss > SPIKE_LOSS)."""
+    ref = {r["iteration"]: r for r in ref_rows}
+    out = []
+    for r in rows:
+        q = ref.get(r["iteration"])
+        if q is None:
+            continue
+        out.append({"iteration": r["iteration"],
+                    "gaussians": (r["num_active"], q["num_active"]),
+                    "demand": (demand(r), demand(q)),
+                    "budget": (r.get("max_pairs"), q.get("max_pairs")),
+                    "loss": (r["loss"], q["loss"]),
+                    "truncated": (r.get("overflow_pairs", 0) > 0, q.get("overflow_pairs", 0) > 0),
+                    "spiked": (r["loss"] > SPIKE_LOSS, q["loss"] > SPIKE_LOSS)})
+    return out
+
+
+def print_comparison(log, ref_log) -> list:
+    """Print ``compare_rows`` of two metrics.jsonl files, a row a line, then
+    each side's spiking rows and its first truncating row, overall and at
+    its largest budget (the limit, once auto-grow has reached it)."""
+    rows, _ = train_flagship.merge_metric_segments(log)
+    ref_rows, _ = train_flagship.merge_metric_segments(ref_log)
+    table = compare_rows(rows, ref_rows)
+    print("iteration  gaussians (run ref)  demand (run ref)  loss (run ref)  flags")
+    for c in table:
+        flags = " ".join(name + ":" + "/".join(s for s, f in zip(("run", "ref"), c[name]) if f)
+                         for name in ("truncated", "spiked") if any(c[name]))
+        print(f"{c['iteration']:9d}  {c['gaussians'][0]:8d} {c['gaussians'][1]:8d}  "
+              f"{c['demand'][0]:9d} {c['demand'][1]:9d}  "
+              f"{c['loss'][0]:.4f} {c['loss'][1]:.4f}  {flags}")
+    for side, name in ((0, "run"), (1, "ref")):
+        spikes = [c["iteration"] for c in table if c["spiked"][side]]
+        top = max(c["budget"][side] or 0 for c in table) if table else 0
+        trunc = [c["iteration"] for c in table if c["truncated"][side]]
+        at_top = [c["iteration"] for c in table
+                  if c["truncated"][side] and c["budget"][side] == top]
+        print(f"{name}: spiked rows {spikes}; first truncating row "
+              f"{trunc[0] if trunc else None}, at the budget {top}: "
+              f"{at_top[0] if at_top else None} ({len(at_top)} rows)")
+    return table
+
+
 def main(argv=None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
     split = argv.index("--") if "--" in argv else len(argv)
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--report", required=True, help="JSON report path")
+    ap.add_argument("--report", help="JSON report path (required to train)")
     ap.add_argument("--keep", default=None, help="copy the small outputs here")
+    ap.add_argument("--compare", nargs=2, metavar=("LOG", "REF"),
+                    help="print two metrics.jsonl files side by side and exit")
     args = ap.parse_args(argv[:split])
+    if args.compare:
+        return {"rows": print_comparison(*args.compare)}
+    if not args.report:
+        ap.error("--report is required to train")
     flags = argv[split + 1:]
     out = Path(train_flagship.parse_args(flags).out)
     gpu = gpu_line()

@@ -99,10 +99,45 @@ def test_torch_diagnose_holdout_matches_the_jax_script(ckpt_dir, monkeypatch, ca
 
 
 @pytest.mark.parametrize("path", ["scripts/torch_ckpt_to_ply.py",
+                                  "scripts/torch_flagship_run.py",
                                   "scripts/torch_diagnose_holdout.py",
                                   "tests/torch_golden_scene.py"])
 def test_torch_tools_import_no_jax(path):
-    """The two scripts and the golden scene's module run where JAX is not
+    """The scripts and the golden scene's module run where JAX is not
     installed: they import neither JAX, the JAX package, Pillow nor
     matplotlib."""
     assert FORBIDDEN.findall((REPO / path).read_text()) == []
+
+
+def _row(it, n, pairs, overflow, loss, budget):
+    return {"iteration": it, "num_active": n, "num_pairs": pairs, "overflow_pairs": overflow,
+            "loss": loss, "max_pairs": budget, "wall_s": float(it)}
+
+
+def test_flagship_run_compares_two_logs(tmp_path, capsys):
+    """``torch_flagship_run.py --compare``: two metrics.jsonl logs side by
+    side at their shared iterations, with each side's spiking rows and first
+    truncating row, overall and at its largest budget."""
+    import json
+
+    run = [_row(50, 100, 512, 10, 0.6, 1024), _row(100, 110, 600, 0, 0.2, 1024),
+           _row(150, 120, 1024, 40, 0.3, 2048), _row(200, 130, 700, 0, 0.1, 2048)]
+    ref = [_row(50, 100, 500, 0, 0.4, 1024), _row(150, 125, 1024, 5, 0.7, 1024),
+           _row(200, 140, 1024, 90, 0.2, 1024), _row(250, 150, 800, 0, 0.1, 1024)]
+    paths = []
+    for name, rows in (("run", run), ("ref", ref)):
+        paths.append(tmp_path / f"{name}.jsonl")
+        paths[-1].write_text("".join(json.dumps(r) + "\n" for r in rows))
+    table = _script("torch_flagship_run").main(["--compare", *map(str, paths)])["rows"]
+    assert [c["iteration"] for c in table] == [50, 150, 200]
+    assert table[0]["gaussians"] == (100, 100) and table[0]["demand"] == (522, 500)
+    assert table[1]["demand"] == (1064, 1029) and table[1]["budget"] == (2048, 1024)
+    assert [c["truncated"] for c in table] == [(True, False), (True, True), (False, True)]
+    assert [c["spiked"] for c in table] == [(True, False), (False, True), (False, False)]
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 1 + 3 + 2
+    assert out[1].split()[:5] == ["50", "100", "100", "522", "500"]
+    assert out[-2] == ("run: spiked rows [50]; first truncating row 50, "
+                       "at the budget 2048: 150 (1 rows)")
+    assert out[-1] == ("ref: spiked rows [150]; first truncating row 150, "
+                       "at the budget 1024: 150 (2 rows)")
