@@ -33,13 +33,17 @@ Outputs (to --out):
 
 The flags and their defaults are the JAX script's, plus ``--device``
 (default cuda; a missing CUDA device is an error, ``cpu`` runs the kernels'
-plain versions).  ``--backend`` takes the port's values (``train_cli``'s).
-``--resume ckpt_N.npz`` with the same ``--out`` carries a run across
-several processes; the summary covers every segment
-(``merge_metric_segments``).  ``main(argv)`` returns the summary dict;
-``run(argv)`` also returns the Trainer and the ground-truth pair counts.
+plain versions) and ``--seed`` (default 0, the JAX script's fixed seed; as
+the JAX package's ``train.py --seed``, it seeds the Trainer's camera
+stream, initial point subset and densify key).  ``--backend`` takes the
+port's values (``train_cli``'s).  ``--resume ckpt_N.npz`` with the same
+``--out`` carries a run across several processes; the summary covers every
+segment (``merge_metric_segments``).  ``main(argv)`` returns the summary
+dict; ``run(argv)`` also returns the Trainer and the ground-truth pair
+counts.
 
-The summary keeps the JAX script's keys and meanings.
+The summary keeps the JAX script's keys and meanings; a seed other than 0
+is added as ``workload["seed"]``.
 ``capacity_recompiles`` and ``pair_budget_recompiles`` count the distinct
 capacities and pair budgets in the log minus one; in the port nothing is
 recompiled when either changes (a capacity growth allocates new tensors, a
@@ -140,6 +144,11 @@ def parse_args(argv=None):
                     help="position-LR scene scaling: a float, or 'auto' for "
                          "INRIA's 1.1 x camera bounding-sphere radius "
                          "(1.0 = reference behaviour)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="TrainConfig.seed: the host camera stream, the initial "
+                         "point subset and the densify key (0 = the JAX "
+                         "script's run; the self-fit ground truth always "
+                         "draws from seed 0)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; a CUDA device that is "
                          "missing is an error; cpu runs the plain versions)")
@@ -368,6 +377,7 @@ def run_campaign(args, cams, images, pcd, W, H, out_dir: Path, device,
 
     cfg = TrainConfig(
         iterations=args.iters,
+        seed=args.seed,
         init_points=args.init_points,
         log_interval=50,
         snapshot_interval=10000,
@@ -455,6 +465,10 @@ def run_campaign(args, cams, images, pcd, W, H, out_dir: Path, device,
             if r.get("overflow_pairs", 0) or r.get("overflow_gaussians", 0)
         ),
     }
+    if args.seed:
+        # The JAX script always trains seed 0 and has no such key: at seed 0
+        # the summary keeps exactly its keys.
+        summary["workload"]["seed"] = args.seed
 
     # ---- held-out evaluation (never-trained views), at the final budget --
     if holdout_cams:

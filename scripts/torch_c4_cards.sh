@@ -10,6 +10,11 @@
 #      (artifacts/round3/flagship_vendor/ckpt_6000.npz, read in place)
 #   c  run (b)'s recipe (--opacity-reset-interval 3000 --prune-world-scale 2.0
 #      --spatial-lr-scale auto) at round 4's 2^24 pair limit
+#   s1, s2, s3  card c with --seed 1, 2, 3 (card c is seed 0): the recipe's
+#      spread over seeds
+#   sh4w  round 4's SH4 scale form (scripts/round4_wrapup.sh:77-83) with
+#      --sh-warmup 1000 at a 2^25 pair limit, so that budgets past 2^24 slots
+#      stage through K5 (ops/staging.py) instead of truncating
 #
 #   bash scripts/torch_c4_cards.sh KEEP_DIR a b      # cards named together
 #                                                    # train at once
@@ -17,11 +22,12 @@
 # Each card trains through scripts/torch_flagship_run.py into
 # outputs/c4_<card> and keeps metrics.jsonl, summary.json, the held-out PNGs,
 # its report and its log under KEEP_DIR/<card>.  Then eval_cli scores held-out
-# views 0, 9, 18, 27 of its final PLY at a 2^24 budget (the scoring of
-# scripts/round5_wrapup.sh:31-34); card a also its step-6,000 checkpoint (with
-# scripts/torch_diagnose_holdout.py beside it), card b also the JAX run's
-# iteration_6000.ply and, diagnosed, its ckpt_6000.npz; card a's rows are
-# printed beside the JAX run's (torch_flagship_run.py --compare).
+# views 0, 9, 18, 27 of its final PLY at its limit, 2^24 but 2^25 for sh4w
+# (the scoring of scripts/round5_wrapup.sh:31-34), and
+# scripts/torch_diagnose_holdout.py (sky-dome line first) reads its final
+# checkpoint; card a also scores and diagnoses its step-6,000 checkpoint,
+# card b also the JAX run's iteration_6000.ply and ckpt_6000.npz; card a's
+# rows are printed beside the JAX run's (torch_flagship_run.py --compare).
 set -u
 KEEP=$1
 shift
@@ -31,8 +37,11 @@ ROUND3=(--dataset-root "$SCENE" --holdout 4 --iters 30000 --sh-degree 3
         --densify-until 15000 --checkpoint-interval 2000)
 RUN_B=(--dataset-root "$SCENE" --holdout 4 --iters 30000 --opacity-reset-interval 3000
        --prune-world-scale 2.0 --spatial-lr-scale auto)
-SCORE=(--dataset colmap --root "$SCENE" --resize-factor 1.0 --views 0,9,18,27
-       --max-pairs 16777216)
+SH4W=(--dataset-root "$SCENE" --holdout 4 --iters 30000 --sh-degree 4
+      --grad-threshold 1e-4 --densify-until 20000 --checkpoint-interval 2500
+      --opacity-reset-interval 3000 --prune-world-scale 1.5 --spatial-lr-scale auto
+      --max-pairs 8388608 --sh-warmup 1000 --max-pairs-limit 33554432)
+SCORE=(--dataset colmap --root "$SCENE" --resize-factor 1.0 --views 0,9,18,27)
 
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 # Build the kernels once, before the runs start together.
@@ -47,18 +56,19 @@ train() {  # card, train_flagship flags...
   echo "card $card: train rc=$? $(tail -n 1 "$KEEP/$card/log.txt")"
 }
 
-score() {  # tag, ply
+score() {  # tag, ply[, budget]
   mkdir -p "$KEEP/scores"
   python3 -m gaussiansplattingmlx_tpu_torch.eval_cli "${SCORE[@]}" --ply "$2" \
-      --save-renders "$KEEP/scores/$1" > "$KEEP/scores/$1.txt" 2>&1
+      --max-pairs "${3:-16777216}" --save-renders "$KEEP/scores/$1" \
+      > "$KEEP/scores/$1.txt" 2>&1
   echo "score $1 rc=$?: $(tail -n 1 "$KEEP/scores/$1.txt")"
 }
 
-diagnose() {  # tag, ckpt
+diagnose() {  # tag, ckpt[, budget]
   mkdir -p "$KEEP/scores"
   python3 scripts/torch_diagnose_holdout.py "$2" --dataset-root "$SCENE" \
-      --max-pairs 16777216 > "$KEEP/scores/diagnose_$1.txt" 2>&1
-  echo "diagnose $1 rc=$?"
+      --max-pairs "${3:-16777216}" > "$KEEP/scores/diagnose_$1.txt" 2>&1
+  echo "diagnose $1 rc=$?: $(head -n 1 "$KEEP/scores/diagnose_$1.txt")"
 }
 
 for card in "$@"; do
@@ -66,13 +76,18 @@ for card in "$@"; do
     a) train a "${ROUND3[@]}" & ;;
     b) train b "${ROUND3[@]}" --resume "$JAX_RUN/ckpt_6000.npz" & ;;
     c) train c "${RUN_B[@]}" --max-pairs-limit 16777216 & ;;
+    s[123]) train "$card" "${RUN_B[@]}" --max-pairs-limit 16777216 --seed "${card#s}" & ;;
+    sh4w) train sh4w "${SH4W[@]}" & ;;
     *) echo "unknown card $card" >&2; exit 2 ;;
   esac
 done
 wait
 
 for card in "$@"; do
-  score "${card}_30000" "outputs/c4_$card/iteration_30000.ply"
+  budget=16777216
+  [ "$card" = sh4w ] && budget=33554432
+  score "${card}_30000" "outputs/c4_$card/iteration_30000.ply" "$budget"
+  diagnose "${card}_30000" "outputs/c4_$card/ckpt_30000.npz" "$budget"
   case $card in
     a)
       python3 scripts/torch_ckpt_to_ply.py outputs/c4_a/ckpt_6000.npz \

@@ -9,10 +9,12 @@ Each ablation prints the PSNR of every view and their mean, as
 ``scripts/diagnose_holdout.py`` prints them; the mechanism is whichever cull
 recovers the most dB.  A line before them gives the sky dome's (r > 5)
 Gaussians, mean opacity and mean SH-rest energy (sum of the squared
-higher-band coefficients) beside the rest's.  Ablations zero the opacity
-of the culled rows (or the SH coefficients above a degree) instead of
-dropping them, so every render has the same shapes.  ``--device`` defaults to ``cuda``; a missing
-card is an error.  Imports torch, numpy and the port (no JAX).
+higher-band coefficients) beside the rest's; the next counts the live rows
+holding a NaN or an infinity, in all and by parameter.  Ablations zero the
+opacity of the culled rows (or the SH coefficients above a degree) instead
+of dropping them, so every render has the same shapes.  ``--device``
+defaults to ``cuda``; a missing card is an error.  Imports torch, numpy and
+the port (no JAX).
 """
 
 from __future__ import annotations
@@ -61,9 +63,9 @@ def main(argv=None) -> dict:
 
     with np.load(args.ckpt) as d:
         n = int(d["num_active"])
-        params = params_from_numpy(
-            {k: d[f"param_{k}"][:n] for k in ("xyz", "features_dc", "features_rest",
-                                               "scales", "rotation", "opacity")}, device)
+        raw = {k: d[f"param_{k}"][:n] for k in ("xyz", "features_dc", "features_rest",
+                                                 "scales", "rotation", "opacity")}
+    params = params_from_numpy(raw, device)
     sh_degree = params.sh_degree
     means, shs, opacity, scales, rots = (t.detach() for t in activations(params))
     means_np = means.cpu().numpy()
@@ -80,6 +82,9 @@ def main(argv=None) -> dict:
           f"{mean(op_np[dome]):.4f}, mean SH-rest energy {mean(rest_energy[dome]):.4f}; "
           f"the rest: opacity {mean(op_np[~dome]):.4f}, SH-rest energy "
           f"{mean(rest_energy[~dome]):.4f}", flush=True)
+    bad = {k: ~np.isfinite(v.reshape(n, -1)).all(axis=1) for k, v in raw.items()}
+    print(f"non-finite rows: {int(np.any(list(bad.values()), axis=0).sum())} of {n} ("
+          + ", ".join(f"{k} {int(b.sum())}" for k, b in bad.items()) + ")", flush=True)
 
     cam_pos = np.stack([np.asarray(c.tensors()["camera_center"]).reshape(3)
                         for c in data.cameras])

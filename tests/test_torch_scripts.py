@@ -93,6 +93,7 @@ def test_torch_diagnose_holdout_matches_the_jax_script(ckpt_dir, monkeypatch, ca
     np.testing.assert_allclose(np.array(list(got.values())), want, rtol=0, atol=1e-3)
     kept = re.compile(r"kept +(\d+)/(\d+)")
     assert kept.findall(port_out) == kept.findall(jax_out)
+    assert port_out.splitlines()[1].startswith("non-finite rows: 0 of ")
     assert np.isfinite(want).all() and want.min() > 5.0
     # The ablations change the image: SH0 and the opacity culls move PSNR.
     assert len({round(float(v), 4) for v in want[:, 0]}) > 3
