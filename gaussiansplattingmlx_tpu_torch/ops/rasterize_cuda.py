@@ -135,18 +135,19 @@ def _composite(r, valid, ts, grid_w, tile_w, tile_h, alpha_clamp, transmittance_
 
 
 def _tile_batches(records_cm, tile_start, tile_count, tt, max_elems):
-    """Yield (tile ids [B], record columns [B, L], valid [B, L]) over all
-    tiles, each tile's window padded to the longest tile, at most
+    """Yield (tile ids [B], record columns [B, L], valid [B, L]) over the
+    tiles that hold records (an empty tile's outputs and gradients are
+    zeros), each tile's window padded to the longest tile, at most
     ``max_elems`` (pixel, record) entries a batch."""
     dev = records_cm.device
-    num_tiles = tile_start.shape[0]
-    longest = int(tile_count.max()) if num_tiles else 0
-    if longest == 0:
+    tiles = torch.nonzero(tile_count > 0).reshape(-1)
+    if tiles.numel() == 0:
         return
+    longest = int(tile_count.max())
     j = torch.arange(longest, device=dev)
     batch = max(1, max_elems // (tt * longest))
-    for t0 in range(0, num_tiles, batch):
-        ts = torch.arange(t0, min(t0 + batch, num_tiles), device=dev)
+    for t0 in range(0, tiles.numel(), batch):
+        ts = tiles[t0:t0 + batch]
         start = tile_start[ts].long()
         valid = j[None, :] < tile_count[ts].long()[:, None]  # [B, L]
         idx = torch.where(valid, start[:, None] + j[None, :], 0)

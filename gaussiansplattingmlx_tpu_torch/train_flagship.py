@@ -40,7 +40,8 @@ port's values (``train_cli``'s).  ``--resume ckpt_N.npz`` with the same
 ``--out`` carries a run across several processes; the summary covers every
 segment (``merge_metric_segments``).  ``main(argv)`` returns the summary
 dict; ``run(argv)`` also returns the Trainer and the ground-truth pair
-counts.
+counts; ``prepare(argv)`` builds the scene and the Trainer and trains
+nothing (``scripts/torch_find_nonfinite.py`` steps that Trainer itself).
 
 The summary keeps the JAX script's keys and meanings; a seed other than 0
 is added as ``workload["seed"]``.
@@ -295,7 +296,36 @@ class FlagshipRun:
     gt_params: Optional[gaussians.GaussianParams] = None
 
 
+@dataclasses.dataclass
+class Campaign:
+    """A campaign ready to train: its flags, the Trainer (resumed where
+    ``--resume`` says), the image size and the held-out views."""
+    args: argparse.Namespace
+    trainer: Trainer
+    out_dir: Path
+    width: int
+    height: int
+    holdout_ids: List[int]
+    holdout_cams: List[Camera]
+    holdout_images: Optional[np.ndarray] = None
+    gt_pairs: Optional[List[int]] = None
+    gt_params: Optional[gaussians.GaussianParams] = None
+
+
 def run(argv=None) -> FlagshipRun:
+    camp = prepare(argv)
+    summary = run_campaign(camp)
+    return FlagshipRun(summary, camp.trainer, camp.gt_pairs, camp.gt_params)
+
+
+def main(argv=None) -> dict:
+    return run(argv).summary
+
+
+def prepare(argv=None) -> Campaign:
+    """Everything ``run`` does before the first step: the scene (independent
+    imagery, or the self-fit ground truth rendered), the TrainConfig and the
+    Trainer, resumed from ``--resume``."""
     args = parse_args(argv)
     if args.backend is not None:
         resolve_backend(args.backend)  # an unknown name raises before any work
@@ -322,9 +352,9 @@ def run(argv=None) -> FlagshipRun:
         print(f"independent scene {args.dataset_root}: {nv} views {W}x{H} "
               f"({len(cams)} train / {len(holdout_ids)} held out: {holdout_ids}), "
               f"{pcd.size} SfM points", flush=True)
-        summary, trainer = run_campaign(args, cams, images, pcd, W, H, out_dir, device,
-                                        holdout_cams, holdout_images, holdout_ids)
-        return FlagshipRun(summary, trainer)
+        trainer = make_trainer(args, cams, images, pcd, out_dir, device)
+        return Campaign(args, trainer, out_dir, W, H, holdout_ids, holdout_cams,
+                        holdout_images)
 
     # ---- ground-truth scene (self-fit form) ------------------------------
     W = H = args.size
@@ -353,20 +383,13 @@ def run(argv=None) -> FlagshipRun:
     sel = rng.permutation(n)[: args.init_points]
     noisy = pts[sel] + rng.normal(size=(args.init_points, 3)).astype(np.float32) * 0.01
     pcd = PointCloud(coords=noisy, colors=cols[sel] * 255.0)
-    summary, trainer = run_campaign(args, cams, images, pcd, W, H, out_dir, device,
-                                    [], None, [])
-    return FlagshipRun(summary, trainer, gt_pairs, gt_params)
+    trainer = make_trainer(args, cams, images, pcd, out_dir, device)
+    return Campaign(args, trainer, out_dir, W, H, [], [], None, gt_pairs, gt_params)
 
 
-def main(argv=None) -> dict:
-    return run(argv).summary
-
-
-def run_campaign(args, cams, images, pcd, W, H, out_dir: Path, device,
-                 holdout_cams, holdout_images, holdout_ids):
+def make_trainer(args, cams, images, pcd, out_dir: Path, device) -> Trainer:
     """The JAX script's TrainConfig (the reference defaults at flagship
-    scale), the training loop with jsonl logging, the resume-aware summary
-    and the held-out evaluation.  Returns (summary, Trainer)."""
+    scale) and the Trainer on ``device``, resumed from ``--resume``."""
     white_background = not args.dataset_root  # ray-traced scenes have a sky
 
     if args.spatial_lr_scale == "auto":
@@ -409,6 +432,17 @@ def run_campaign(args, cams, images, pcd, W, H, out_dir: Path, device,
     if args.resume:
         trainer.restore_checkpoint(args.resume)
         print(f"resumed from {args.resume} at step {int(trainer.state.step)}")
+    return trainer
+
+
+def run_campaign(camp: Campaign) -> dict:
+    """The training loop with jsonl logging, the resume-aware summary and
+    the held-out evaluation.  Returns the summary."""
+    args, trainer, out_dir = camp.args, camp.trainer, camp.out_dir
+    W, H, holdout_ids = camp.width, camp.height, camp.holdout_ids
+    holdout_cams, holdout_images = camp.holdout_cams, camp.holdout_images
+    cams = trainer.data.cameras
+    white_background = trainer.cfg.white_background
 
     # ---- run ------------------------------------------------------------
     log_path = out_dir / "metrics.jsonl"
@@ -458,7 +492,7 @@ def run_campaign(args, cams, images, pcd, W, H, out_dir: Path, device,
         "segments": len(set(r.get("_segment", 0) for r in rows)),
         "capacity_recompiles": len(set(r["capacity"] for r in rows)) - 1,
         "pair_budget_recompiles": len(
-            set(r.get("max_pairs", cfg.raster.max_pairs) for r in rows)) - 1,
+            set(r.get("max_pairs", args.max_pairs) for r in rows)) - 1,
         "final_max_pairs": trainer.cfg.raster.max_pairs,
         "overflow_events": sum(
             1 for r in rows
@@ -501,7 +535,7 @@ def run_campaign(args, cams, images, pcd, W, H, out_dir: Path, device,
     with open(out_dir / "summary.json", "w") as f:
         json.dump(summary, f, indent=2)
     print(json.dumps(summary, indent=2))
-    return summary, trainer
+    return summary
 
 
 def merge_metric_segments(log_path):

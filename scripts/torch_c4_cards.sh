@@ -15,6 +15,11 @@
 #   sh4w  round 4's SH4 scale form (scripts/round4_wrapup.sh:77-83) with
 #      --sh-warmup 1000 at a 2^25 pair limit, so that budgets past 2^24 slots
 #      stage through K5 (ops/staging.py) instead of truncating
+#   w0, w1, w2, w3  card c with --sh-warmup 1000 and --seed 0, 1, 2, 3: the
+#      recipe's spread over seeds with the SH bands warmed up
+#   c5  ROADMAP C.5: scripts/torch_find_nonfinite.py on card s2's run (replayed
+#      to its step 22,500 in outputs/c4_s2 unless ckpt_22500.npz is there), its
+#      record and the CPU test's fixture under KEEP_DIR/c5; not scored
 #
 #   bash scripts/torch_c4_cards.sh KEEP_DIR a b      # cards named together
 #                                                    # train at once
@@ -77,6 +82,14 @@ for card in "$@"; do
     b) train b "${ROUND3[@]}" --resume "$JAX_RUN/ckpt_6000.npz" & ;;
     c) train c "${RUN_B[@]}" --max-pairs-limit 16777216 & ;;
     s[123]) train "$card" "${RUN_B[@]}" --max-pairs-limit 16777216 --seed "${card#s}" & ;;
+    w[0123]) train "$card" "${RUN_B[@]}" --max-pairs-limit 16777216 --sh-warmup 1000 --seed "${card#w}" & ;;
+    c5)
+      mkdir -p "$KEEP/c5"
+      python3 scripts/torch_find_nonfinite.py --start 22500 --until 25000 \
+          --record "$KEEP/c5/record.npz" --fixture "$KEEP/c5/fixture.npz" -- \
+          "${RUN_B[@]}" --max-pairs-limit 16777216 --seed 2 --out outputs/c4_s2 \
+          > "$KEEP/c5/log.txt" 2>&1 &
+      ;;
     sh4w) train sh4w "${SH4W[@]}" & ;;
     *) echo "unknown card $card" >&2; exit 2 ;;
   esac
@@ -84,6 +97,7 @@ done
 wait
 
 for card in "$@"; do
+  [ "$card" = c5 ] && { echo "c5: $(tail -n 1 "$KEEP/c5/log.txt")"; continue; }
   budget=16777216
   [ "$card" = sh4w ] && budget=33554432
   score "${card}_30000" "outputs/c4_$card/iteration_30000.ply" "$budget"

@@ -102,6 +102,7 @@ def test_torch_diagnose_holdout_matches_the_jax_script(ckpt_dir, monkeypatch, ca
 @pytest.mark.parametrize("path", ["scripts/torch_ckpt_to_ply.py",
                                   "scripts/torch_flagship_run.py",
                                   "scripts/torch_diagnose_holdout.py",
+                                  "scripts/torch_find_nonfinite.py",
                                   "tests/torch_golden_scene.py"])
 def test_torch_tools_import_no_jax(path):
     """The scripts and the golden scene's module run where JAX is not
@@ -142,3 +143,34 @@ def test_flagship_run_compares_two_logs(tmp_path, capsys):
                        "at the budget 2048: 150 (1 rows)")
     assert out[-1] == ("ref: spiked rows [150]; first truncating row 150, "
                        "at the budget 1024: 150 (2 rows)")
+
+
+def _card_arms(script: str) -> dict:
+    """The one-line arms of the card ``case`` in torch_c4_cards.sh:
+    pattern -> the words of its command."""
+    import shlex
+
+    arms = {}
+    for line in script.splitlines():
+        m = re.match(r"^\s*([\w\[\]]+)\)\s*(train .*?)\s*&\s*;;\s*$", line)
+        if m:
+            arms[m.group(1)] = shlex.split(m.group(2))
+    return arms
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_c4_cards_warmup_seeds(seed):
+    """``torch_c4_cards.sh`` knows cards w0-w3: card c's flags (run (b) at
+    the 2^24 limit) plus ``--sh-warmup 1000`` and the card's ``--seed``.
+    The script is parsed, not run."""
+    import fnmatch
+
+    arms = _card_arms((REPO / "scripts" / "torch_c4_cards.sh").read_text())
+    card = f"w{seed}"
+    pattern = [p for p in arms if fnmatch.fnmatchcase(card, p)]
+    assert len(pattern) == 1, (card, sorted(arms))
+    words = [w.replace("${card#w}", card[1:]).replace("$card", card) for w in arms[pattern[0]]]
+    assert words[:2] == ["train", card]
+    base = arms["c"][2:]
+    assert base == ["${RUN_B[@]}", "--max-pairs-limit", "16777216"]
+    assert words[2:] == base + ["--sh-warmup", "1000", "--seed", str(seed)]
