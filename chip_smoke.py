@@ -98,9 +98,10 @@ and checks each against its plain PyTorch version at the shapes of its path:
   two launches compared bit for bit; both timed), then ``Trainer.run``
   for 20 steps in the sorted layout and 10 in the aligned and split
   layouts, their losses held to the sorted segsum run's;
-* the profiler (``utils/profiler.py``): ``IntervalProfiler`` with
-  ``sync_on`` over 3 default training steps, and ``trace()`` of one step,
-  whose Chrome trace must name K1-K4's kernels;
+* the spans (``utils/profiler.py``): ``trace()`` of 3 default training
+  steps, whose Chrome trace must name K1-K4's kernels and every span of
+  ``SPANS`` once a step, and leave under 2% of the device time outside
+  the spans (``benchmark/spans.py``);
 * the native COLMAP parsers (built with the host C++ compiler) against
   the Python parsers on the vendored scene's ``sparse/``, bit for bit; and
   in a fresh process with no compiler (``CXX`` a missing file, an empty
@@ -341,9 +342,11 @@ REF_WIDTH, REF_HEIGHT, REF_MAX_PAIRS = 100, 72, 8192
 REF_EVAL_FACTOR, REF_EVAL_MAX_PAIRS = 0.25, 32768
 # eval_cli metrics against each other (tests/test_torch_cli.py's bars).
 PSNR_ATOL_DB, SSIM_ATOL, L1_ATOL = 0.01, 1e-4, 1e-5
-# The profiler phase: IntervalProfiler over PROFILE_STEPS training steps,
-# then one step under trace(), whose file must name K1-K4's kernels.
+# The profiler phase: PROFILE_STEPS training steps under trace(), whose
+# file must name K1-K4's kernels and every span once a step, with under
+# UNSPANNED_SHARE of the device time outside the spans.
 PROFILE_STEPS = 3
+UNSPANNED_SHARE = 0.02
 # The staging route above 2^24 slots (ops/staging.py: K5's int32 ranks in
 # place of K2's float32 slot values), on the training workload's initial
 # Gaussians at tile 16: the busiest orbit view at 800x800 (~14.4 M pairs)
@@ -2669,43 +2672,47 @@ def check_eval_reference(ply_path: Path, counters, expect) -> dict:
 
 
 def check_profiler(ply_path: Path, data, device, max_pairs: int, tmp: Path) -> None:
-    """The profiler on the default training step: IntervalProfiler with
-    sync_on over PROFILE_STEPS steps prints its report, and trace() of one
-    more step writes a Chrome trace that names K1-K4's kernels."""
-    from gaussiansplattingmlx_tpu_torch.utils.profiler import IntervalProfiler, trace
+    """The spans on the default training step: trace() of PROFILE_STEPS
+    steps writes a Chrome trace that names K1-K4's kernels and every span of
+    ``SPANS`` at least once a step, and leaves under UNSPANNED_SHARE of the
+    device time outside the spans (``benchmark/spans.py``)."""
+    from benchmark import spans
+    from gaussiansplattingmlx_tpu_torch.utils.profiler import SPANS, trace
 
     trainer = make_trainer(ply_path, data, device)
     trainer.set_max_pairs(max_pairs)
-    prof = IntervalProfiler()
     state = trainer.state
-    for i in range(PROFILE_STEPS):
-        with prof.measure("step", sync_on=state.params.xyz):
-            with prof.measure("train_step"):
-                state, metrics, _ = trainer.train_step(state, trainer.views, i % data.num_views)
-            with prof.measure("metrics to host", sync_on=metrics):
-                loss = float(metrics["loss"])
-    report = prof.report()
-    print(report, flush=True)
-    require(prof.sections["step"].count == PROFILE_STEPS and np.isfinite(loss)
-            and prof.sections["step"].total >= prof.sections["train_step"].total,
-            "profiler: sections not nested as measured")
+    state, metrics, _ = trainer.train_step(state, trainer.views, 0)
+    torch.cuda.synchronize()
     out = tmp / "trace"
     with trace(str(out)):
-        state, metrics, _ = trainer.train_step(state, trainer.views, 0)
+        for i in range(PROFILE_STEPS):
+            state, metrics, _ = trainer.train_step(state, trainer.views, i % data.num_views)
         torch.cuda.synchronize()
+    require(np.isfinite(float(metrics["loss"])), "profiler: a non-finite loss")
     files = sorted(out.glob("trace_*.json"))
     require(len(files) == 1, f"profiler: trace files {files}")
-    events = json.loads(files[0].read_text())["traceEvents"]
+    events = spans.read_events(str(files[0]))
     kernels = [e for e in events if e.get("cat") == "kernel"]
     names = " ".join(e.get("name", "") for e in kernels)
     missing = [k for k, v in TRACE_KERNELS.items() if v not in names]
     require(not missing, f"profiler: the trace names no kernel of {missing}")
-    busy = sum(float(e.get("dur", 0)) for e in kernels) / 1e3
-    print(f"profiler: IntervalProfiler with sync_on over {PROFILE_STEPS} training steps (report "
-          f"above: {prof.sections['step'].total / PROFILE_STEPS * 1e3:.2f} ms a step, host "
-          f"clock after a device sync); trace() of one step wrote {files[0].name} "
-          f"({files[0].stat().st_size} bytes, {len(kernels)} kernel events, {busy:.3f} ms of "
-          f"kernel time), naming {sorted(TRACE_KERNELS.values())} | {gpu_line()}", flush=True)
+    seen = {n: sum(1 for e in events if e.get("cat") == "user_annotation" and e["name"] == n)
+            for n in SPANS}
+    require(all(c >= PROFILE_STEPS for c in seen.values()),
+            f"profiler: spans recorded over {PROFILE_STEPS} steps: {seen}")
+    split = spans.attribute(events)
+    device_ms = 1e3 * sum(split.device_s.values())
+    unspanned = 1e3 * split.device_s.get(spans.UNSPANNED, 0.0)
+    require(unspanned < UNSPANNED_SHARE * device_ms,
+            f"profiler: {unspanned:.3f} of {device_ms:.3f} device ms outside the spans")
+    by_span = ", ".join(f"{k} {v * 1e3 / PROFILE_STEPS:.3f}"
+                        for k, v in sorted(split.device_s.items(), key=lambda kv: -kv[1]))
+    print(f"profiler: trace() of {PROFILE_STEPS} default training steps wrote {files[0].name} "
+          f"({files[0].stat().st_size} bytes, {len(kernels)} kernel events), naming "
+          f"{sorted(TRACE_KERNELS.values())} and every span ({seen}); device ms a step by span "
+          f"(benchmark/spans.py): {by_span}; unspanned {unspanned:.3f} of {device_ms:.3f} ms | "
+          f"{gpu_line()}", flush=True)
 
 
 def check_golden(device, counters, expect) -> dict:

@@ -32,6 +32,7 @@ import torch
 
 from ..utils import sh as sh_utils
 from ..utils import transforms
+from ..utils.profiler import span
 
 
 class ProjectionOutputs(NamedTuple):
@@ -152,8 +153,9 @@ def project_gaussians(
     conic = torch.stack([c11 / det, -c01 / det, -c10 / det, c00 / det], dim=-1)
 
     # --- SH color -----------------------------------------------------------
-    dirs = means3d - camera_center[None, :]  # unnormalized, by design
-    colors = sh_utils.sh_to_color(sh_degree, shs, dirs)
+    with span("sh"):
+        dirs = means3d - camera_center[None, :]  # unnormalized, by design
+        colors = sh_utils.sh_to_color(sh_degree, shs, dirs)
 
     # --- radius and screen rect ---------------------------------------------
     mid = 0.5 * (c00 + c11)

@@ -38,6 +38,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiler import span
 from . import _kernels, segsum_cuda
 from .rasterize_ref import RenderOutputs
 
@@ -323,15 +324,18 @@ class _RasterCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, cot_out):
-        records_cm, tile_start, tile_count, alpha_ncon = ctx.saved_tensors
-        alpha_clamp, eps, floor = ctx.consts
-        block = cotangent_block(cot_out, alpha_ncon)
-        consts = dict(alpha_clamp=alpha_clamp, transmittance_eps=eps, undo_denom_floor=floor)
-        if ctx.sorted_mode:
-            grad = raster_bwd(records_cm, tile_start, tile_count, block, *ctx.geom, **consts)
-        else:
-            grad = raster_bwd_aligned(records_cm, tile_start, tile_count, block, *ctx.geom,
-                                      ctx.chunk, **consts)
+        with span("composite.bwd"):
+            records_cm, tile_start, tile_count, alpha_ncon = ctx.saved_tensors
+            alpha_clamp, eps, floor = ctx.consts
+            block = cotangent_block(cot_out, alpha_ncon)
+            consts = dict(alpha_clamp=alpha_clamp, transmittance_eps=eps,
+                          undo_denom_floor=floor)
+            if ctx.sorted_mode:
+                grad = raster_bwd(records_cm, tile_start, tile_count, block, *ctx.geom,
+                                  **consts)
+            else:
+                grad = raster_bwd_aligned(records_cm, tile_start, tile_count, block,
+                                          *ctx.geom, ctx.chunk, **consts)
         return grad, None, None, None, None, None, None
 
 
@@ -482,9 +486,10 @@ class _GatherRecords(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_cm):
-        (gid,) = ctx.saved_tensors
-        d_packed = reduce_record_cotangent(g_cm.contiguous(), gid, ctx.num_rec,
-                                           ctx.grad_reduce)
+        with span("stage.bwd"):
+            (gid,) = ctx.saved_tensors
+            d_packed = reduce_record_cotangent(g_cm.contiguous(), gid, ctx.num_rec,
+                                               ctx.grad_reduce)
         return d_packed, None, None, None
 
 

@@ -40,6 +40,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiler import span
 from . import binning as binning_mod
 from . import merge_cuda, rasterize_cuda, relayout_cuda
 from .rasterize_cuda import REC_DIM
@@ -305,9 +306,10 @@ class _Stage(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_records, *_):
-        (gid,) = ctx.saved_tensors
-        d_packed = rasterize_cuda.reduce_record_cotangent(g_records.contiguous(), gid,
-                                                          ctx.num_rec, ctx.grad_reduce)
+        with span("stage.bwd"):
+            (gid,) = ctx.saved_tensors
+            d_packed = rasterize_cuda.reduce_record_cotangent(g_records.contiguous(), gid,
+                                                              ctx.num_rec, ctx.grad_reduce)
         return None, None, d_packed, None, None, None, None
 
 

@@ -35,6 +35,7 @@ from .config import SELECTORS, RasterizerConfig
 from .ops import binning as binning_mod
 from .ops import projection, rasterize_cuda, rasterize_ref
 from .ops import staging as staging_mod
+from .utils.profiler import span
 
 
 class RenderAux(NamedTuple):
@@ -117,77 +118,82 @@ def render(
     proj_height = full_image_height if full_image_height is not None else image_height
     grad_ctx = torch.no_grad() if inference else contextlib.nullcontext()
     with grad_ctx:
-        p = projection.project_gaussians(
-            means3d, scales, rotations, shs, view, proj, camera_center,
-            fov_x, fov_y, focal_x, focal_y, image_width, proj_height, sh_degree,
-            z_cull=cfg.z_cull,
-            ndc_w_eps=cfg.ndc_w_eps,
-            tanfov_clip=cfg.tanfov_clip,
-            cov2d_dilation=cfg.cov2d_dilation,
-            radius_eigen_eps=cfg.radius_eigen_eps,
-            quat_norm_eps=cfg.quat_norm_eps,
-            active=active,
-        )
-        means2d, rect_min, rect_max = band_window(p, image_height, pixel_y_offset)
-        packed = rasterize_ref.pack_gaussians(
-            means2d, p.conic, p.colors, opacity, p.depths
-        )
+        with span("project"):
+            p = projection.project_gaussians(
+                means3d, scales, rotations, shs, view, proj, camera_center,
+                fov_x, fov_y, focal_x, focal_y, image_width, proj_height, sh_degree,
+                z_cull=cfg.z_cull,
+                ndc_w_eps=cfg.ndc_w_eps,
+                tanfov_clip=cfg.tanfov_clip,
+                cov2d_dilation=cfg.cov2d_dilation,
+                radius_eigen_eps=cfg.radius_eigen_eps,
+                quat_norm_eps=cfg.quat_norm_eps,
+                active=active,
+            )
+            means2d, rect_min, rect_max = band_window(p, image_height, pixel_y_offset)
+            packed = rasterize_ref.pack_gaussians(
+                means2d, p.conic, p.colors, opacity, p.depths
+            )
         common = dict(chunk_size=cfg.chunk_size, alpha_clamp=cfg.alpha_clamp,
                       transmittance_eps=cfg.transmittance_eps,
                       undo_denom_floor=cfg.undo_denom_floor)
-        if backend == "reference" or cfg.staging == "split":
-            staged = binning_mod.bin_gaussians(
-                rect_min, rect_max, p.radii, p.depths, image_width, image_height,
-                cfg.tile_w, cfg.tile_h, cfg.max_pairs,
-            )
-        if backend == "reference":
-            out = rasterize_ref.rasterize_reference(
-                packed, staged.sorted_gauss_idx, staged.sorted_tile_id,
-                image_width, image_height, cfg.tile_w, cfg.tile_h,
-                alpha_clamp=cfg.alpha_clamp, transmittance_eps=cfg.transmittance_eps,
-            )
-        elif cfg.staging == "split":
-            out = rasterize_cuda.rasterize_split(
-                packed, staged.sorted_gauss_idx, staged.tile_start, staged.tile_count,
-                image_width, image_height, cfg.tile_w, cfg.tile_h,
-                grad_reduce=cfg.grad_reduce, **common,
-            )
-        else:
-            sst = staging_mod.StagingStatic(
-                image_width=image_width,
-                image_height=image_height,
-                tile_w=cfg.tile_w,
-                tile_h=cfg.tile_h,
-                max_pairs=cfg.max_pairs,
-                chunk=cfg.chunk_size,
-                grad_reduce=cfg.grad_reduce,
-            )
-            geom = (sst, packed, rect_min, rect_max, p.radii, p.depths)
-            if inference:
-                staged = staging_mod.stage_pairs_sorted(*geom)
-                starts, sorted_mode = staged.tile_start, True
-            elif cfg.train_staging == "sorted":
-                staged = staging_mod.stage_pairs_train(*geom)
-                starts, sorted_mode = staged.tile_start, True
+        binned = backend == "reference" or cfg.staging == "split"
+        with span("stage"):
+            if binned:
+                staged = binning_mod.bin_gaussians(
+                    rect_min, rect_max, p.radii, p.depths, image_width, image_height,
+                    cfg.tile_w, cfg.tile_h, cfg.max_pairs,
+                )
             else:
-                staged = staging_mod.stage_pairs(*geom)
-                starts, sorted_mode = staged.aligned_start, False
-            out = rasterize_cuda.rasterize_staged(
-                staged.records_cm, starts, staged.tile_count,
-                image_width, image_height, cfg.tile_w, cfg.tile_h,
-                sorted_mode=sorted_mode, **common,
+                sst = staging_mod.StagingStatic(
+                    image_width=image_width,
+                    image_height=image_height,
+                    tile_w=cfg.tile_w,
+                    tile_h=cfg.tile_h,
+                    max_pairs=cfg.max_pairs,
+                    chunk=cfg.chunk_size,
+                    grad_reduce=cfg.grad_reduce,
+                )
+                geom = (sst, packed, rect_min, rect_max, p.radii, p.depths)
+                if inference:
+                    staged = staging_mod.stage_pairs_sorted(*geom)
+                    starts, sorted_mode = staged.tile_start, True
+                elif cfg.train_staging == "sorted":
+                    staged = staging_mod.stage_pairs_train(*geom)
+                    starts, sorted_mode = staged.tile_start, True
+                else:
+                    staged = staging_mod.stage_pairs(*geom)
+                    starts, sorted_mode = staged.aligned_start, False
+        with span("composite"):
+            if backend == "reference":
+                out = rasterize_ref.rasterize_reference(
+                    packed, staged.sorted_gauss_idx, staged.sorted_tile_id,
+                    image_width, image_height, cfg.tile_w, cfg.tile_h,
+                    alpha_clamp=cfg.alpha_clamp, transmittance_eps=cfg.transmittance_eps,
+                )
+            elif binned:
+                out = rasterize_cuda.rasterize_split(
+                    packed, staged.sorted_gauss_idx, staged.tile_start, staged.tile_count,
+                    image_width, image_height, cfg.tile_w, cfg.tile_h,
+                    grad_reduce=cfg.grad_reduce, **common,
+                )
+            else:
+                out = rasterize_cuda.rasterize_staged(
+                    staged.records_cm, starts, staged.tile_count,
+                    image_width, image_height, cfg.tile_w, cfg.tile_h,
+                    sorted_mode=sorted_mode, **common,
+                )
+            out = out._replace(color=rasterize_ref.apply_background(
+                out.color, out.alpha, white_background))
+            aux = RenderAux(
+                radii=p.radii,
+                num_pairs=staged.num_pairs,
+                overflow_gaussians=staged.overflow_gaussians,
+                overflow_pairs=staged.overflow_pairs,
+                means2d=p.means2d,
+                tile_depth_mean=torch.mean(staged.tile_count.to(torch.float32)),
+                tile_depth_max=torch.max(staged.tile_count),
             )
-        out = out._replace(color=rasterize_ref.apply_background(
-            out.color, out.alpha, white_background))
-    aux = RenderAux(
-        radii=p.radii,
-        num_pairs=staged.num_pairs,
-        overflow_gaussians=staged.overflow_gaussians,
-        overflow_pairs=staged.overflow_pairs,
-        means2d=p.means2d,
-        tile_depth_mean=torch.mean(staged.tile_count.to(torch.float32)),
-        tile_depth_max=torch.max(staged.tile_count),
-    )
     return out, aux
 
 

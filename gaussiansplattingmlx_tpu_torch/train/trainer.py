@@ -52,6 +52,7 @@ from ..utils import prng
 from ..utils.chart import two_axis_chart
 from ..utils.png import write_png
 from ..utils.point_cloud import PointCloud
+from ..utils.profiler import span
 from . import densify as densify_mod
 from . import optimizer as adam
 
@@ -147,11 +148,12 @@ def render_view(cfg: TrainConfig, state: TrainState, take: Callable, image_width
     and ``full_image_height``), with ``render``'s ``backend``.  ``take(key)``
     reads the view's tensors.  Returns (parameter leaves, active mask,
     RenderOutputs, RenderAux)."""
-    leaves = state.params.tensors()
-    active = gaussians.active_mask(state.params.capacity, state.num_active)
-    params = gaussians.apply_sh_warmup(leaves, state.step, int(cfg.model.sh_warmup_interval),
-                                       sh_degree)
-    means3d, shs, opacity, scales, rotations = gaussians.activations(params, active)
+    with span("activations"):
+        leaves = state.params.tensors()
+        active = gaussians.active_mask(state.params.capacity, state.num_active)
+        params = gaussians.apply_sh_warmup(leaves, state.step,
+                                           int(cfg.model.sh_warmup_interval), sh_degree)
+        means3d, shs, opacity, scales, rotations = gaussians.activations(params, active)
     out, aux = render_fn(
         means3d, shs, opacity, scales, rotations,
         take("view"), take("proj"), take("camera_center"),
@@ -166,11 +168,12 @@ def render_view(cfg: TrainConfig, state: TrainState, take: Callable, image_width
 def view_loss(cfg: TrainConfig, color: torch.Tensor, depth: torch.Tensor, take: Callable):
     """The L1 + SSIM (+ depth) loss of a full rendered view against its
     targets.  Returns (loss, parts)."""
-    return losses_mod.total_loss(
-        color, take("target_rgb"), depth, take("target_depth"), take("depth_mask"),
-        lambda_dssim=cfg.loss.lambda_dssim, lambda_depth=cfg.loss.lambda_depth,
-        ssim_window=cfg.loss.ssim_window, ssim_sigma=cfg.loss.ssim_sigma,
-    )
+    with span("loss"):
+        return losses_mod.total_loss(
+            color, take("target_rgb"), depth, take("target_depth"), take("depth_mask"),
+            lambda_dssim=cfg.loss.lambda_dssim, lambda_depth=cfg.loss.lambda_depth,
+            ssim_window=cfg.loss.ssim_window, ssim_sigma=cfg.loss.ssim_sigma,
+        )
 
 
 def param_grads(loss: torch.Tensor, leaves: dict) -> dict:
@@ -231,7 +234,7 @@ def make_train_step(cfg: TrainConfig, image_width: int, image_height: int,
         loss, parts = view_loss(cfg, out.color, out.depth, take)
         grads = param_grads(loss, leaves)
 
-        with torch.no_grad():
+        with span("adam"), torch.no_grad():
             # Densification statistic: accumulated per-point |d xyz|.
             grad_accum = state.grad_accum + torch.sqrt(
                 torch.sum(grads["xyz"] * grads["xyz"], dim=1))
@@ -251,10 +254,10 @@ def make_train_step(cfg: TrainConfig, image_width: int, image_height: int,
                 "overflow_gaussians_acc": overflow_acc[1],
                 "grad_coverage": grad_coverage(active, grad_accum, state.num_active),
             }
-        new_state = dataclasses.replace(
-            state, count=count, grad_accum=grad_accum, grad_denom=grad_denom,
-            step=state.step + 1, overflow_acc=overflow_acc,
-        )
+            new_state = dataclasses.replace(
+                state, count=count, grad_accum=grad_accum, grad_denom=grad_denom,
+                step=state.step + 1, overflow_acc=overflow_acc,
+            )
         return new_state, metrics, color
 
     return train_step

@@ -1,98 +1,43 @@
-"""Hierarchical wall-clock section profiler and a ``torch.profiler`` trace
-helper (torch counterpart of the JAX package's ``utils/profiler.py``).
+"""Named spans of the training step and the served frame, and a
+``torch.profiler`` trace helper.
 
-``IntervalProfiler``: nested ``measure("name")`` scopes with self / total /
-count accounting and a top-K report.  The device runs behind the host, so a
-section that should hold its device time passes ``sync_on=`` the tensors it
-produced: the scope waits for their CUDA devices before it closes.  For
-kernel-level analysis, ``trace()`` records a ``torch.profiler`` trace (CPU
-and, where there is a card, CUDA activity) and writes it as a Chrome trace
-(view it in Perfetto or chrome://tracing).
+``span(name)`` marks one layer of the step as a ``torch.profiler``
+``record_function`` range while a profiler is recording, and does nothing
+otherwise: one flag check, no allocation, never a device synchronisation.
+``SPANS`` lists every name the port records.  On the default layout the
+forward spans tile a step's forward (``activations``, ``project`` with
+``sh`` inside it, ``stage``, ``composite``, ``loss``), ``adam`` holds the
+update and its metrics, and the backwards of the staging and of the
+rasterizer have spans of their own (``stage.bwd``, ``composite.bwd``).
+Autograd's other backward nodes carry no span: a reader of the trace names
+them from the span their forward op ran in (``benchmark/spans.py``).
 
-Nothing on the training or serving path imports this module.
+``trace()`` records a ``torch.profiler`` trace (CPU and, where there is a
+card, CUDA activity) and writes it as a Chrome trace that shows the spans
+beside the kernels they launched (view it in Perfetto or chrome://tracing).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List
 
 import torch
+from torch.profiler import record_function
+
+SPANS = ("activations", "project", "sh", "stage", "composite", "loss", "adam",
+         "stage.bwd", "composite.bwd")
+
+_OFF = contextlib.nullcontext()
 
 
-@dataclass
-class _Section:
-    total: float = 0.0
-    child: float = 0.0
-    count: int = 0
-
-    @property
-    def self_time(self) -> float:
-        return self.total - self.child
-
-
-def cuda_devices(obj) -> set:
-    """The CUDA devices of every tensor in ``obj`` (a tensor, or lists,
-    tuples, named tuples and dicts of them)."""
-    if isinstance(obj, torch.Tensor):
-        return {obj.device} if obj.device.type == "cuda" else set()
-    if isinstance(obj, dict):
-        obj = list(obj.values())
-    if isinstance(obj, (list, tuple)):
-        return set().union(*(cuda_devices(x) for x in obj)) if obj else set()
-    return set()
-
-
-class IntervalProfiler:
-    """Nested-scope timer with parent-child attribution."""
-
-    def __init__(self, enabled: bool = True):
-        self.enabled = enabled
-        self.sections: Dict[str, _Section] = {}
-        self._stack: List[List] = []  # frames: [name, start, child_accum]
-
-    @contextlib.contextmanager
-    def measure(self, name: str, sync_on=None):
-        """Time a scope.  ``sync_on``: tensors whose CUDA devices are
-        synchronised before the scope closes, so that their device time
-        lands in this section (CPU tensors need no wait)."""
-        if not self.enabled:
-            yield
-            return
-        self._stack.append([name, time.perf_counter(), 0.0])
-        try:
-            yield
-        finally:
-            for device in cuda_devices(sync_on):
-                torch.cuda.synchronize(device)
-            frame = self._stack.pop()
-            elapsed = time.perf_counter() - frame[1]
-            sec = self.sections.setdefault(name, _Section())
-            sec.total += elapsed
-            sec.child += frame[2]
-            sec.count += 1
-            if self._stack:
-                self._stack[-1][2] += elapsed
-
-    def report(self, top_k: int = 12) -> str:
-        """Top-K sections by self time."""
-        rows = sorted(
-            self.sections.items(), key=lambda kv: kv[1].self_time, reverse=True
-        )[:top_k]
-        lines = [f"{'section':40s} {'self(ms)':>10s} {'total(ms)':>10s} {'count':>7s}"]
-        for name, sec in rows:
-            lines.append(
-                f"{name:40s} {sec.self_time * 1e3:10.2f} "
-                f"{sec.total * 1e3:10.2f} {sec.count:7d}"
-            )
-        return "\n".join(lines)
-
-    def reset(self):
-        self.sections.clear()
+def span(name: str):
+    """A ``record_function(name)`` range while a profiler records, else a
+    shared no-op context."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return record_function(name)
 
 
 @contextlib.contextmanager
