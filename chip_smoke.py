@@ -11,6 +11,12 @@ and checks each against its plain PyTorch version at the shapes of its path:
   ``normal`` at [2^20, 3] drawn on the card and on the CPU from one key,
   the bits bit-equal, the normals at least 99% bit-equal and none more
   than 4 ulp apart, each draw timed on the card;
+* the projection and SH colour kernels (``csrc/project.cu``) at the
+  train cell's shapes (6,100,000 Gaussians, SH 3, one 1237x822 view, the
+  cotangents as column slices of a packed [N, 11] cotangent): the forward
+  bit-equal to the plain path on the card, every leaf's gradient within
+  the benchmark's grad_gap of 1e-5; each kernel's device time beside its
+  byte bound, and the plain path's forward and backward times;
 * the port's bench through its entry point (``python -m
   gaussiansplattingmlx_tpu_torch.bench`` at its defaults, in a fresh
   process): the JAX package's bench.py workload (its seed-0 scene of
@@ -187,6 +193,23 @@ EARLY_RTOL, EARLY_ATOL = 5e-3, 5e-4
 # Segment sums: another summation order than index_add_'s; atol 1e-6 of the
 # largest sum covers segments that cancel.
 SEGSUM_RTOL, SEGSUM_ATOL = 1e-5, 1e-6
+# The projection and SH colour kernels at the train cell's shapes
+# (benchmark cell mipnerf360_outdoor_4.train_late): 6,100,000 Gaussians at
+# SH 3 through one 1237x822 view at focal 1000, ~2% of rows inactive.
+PROJ_N = 6_100_000
+PROJ_WIDTH, PROJ_HEIGHT, PROJ_FOCAL, PROJ_SH = 1237, 822, 1000.0, 3
+PROJ_GRAD_GAP = 1e-5
+# Bytes a Gaussian each kernel must move, inputs read once and outputs
+# written once: the projection reads mean, scale, quaternion and active (44)
+# and writes means2d, depth, cov2d, conic, radius and rects (64); its
+# backward reads those inputs and the cotangents of means2d, depth and conic
+# (72) and writes d mean, d scale and d quaternion (40); the SH colour reads
+# 16 x 3 coefficients and the mean (204) and writes the colour (12); its
+# backward reads those and d colour (216) and writes d coefficients and d
+# mean (204).  Operations a Gaussian as benchmark/counts.py counts them
+# (projection 300, SH 3 140, a backward twice its forward).
+PROJ_BYTES = {"project_fwd": 108, "sh_color_fwd": 216, "project_bwd": 112, "sh_color_bwd": 420}
+PROJ_OPS = {"project_fwd": 300, "sh_color_fwd": 140, "project_bwd": 600, "sh_color_bwd": 280}
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s
 # and float32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -326,6 +349,10 @@ CLI_PAR_RESUME = 300
 # K1-K4, by C symbol (ranks report their counters by symbol).
 PAR_KERNELS = {"gsplat_merge_gather": "merge_gather", "gsplat_raster_fwd": "raster_fwd",
                "gsplat_raster_bwd": "raster_bwd", "gsplat_segsum": "segsum"}
+# The projection and SH colour kernels, which every render and step also
+# launches.
+PROJ_SYMBOLS = ("gsplat_project_fwd", "gsplat_project_bwd", "gsplat_sh_color_fwd",
+                "gsplat_sh_color_bwd")
 
 
 # The scatter reduction (grad_reduce="scatter") in place of K4: the sorted
@@ -1375,6 +1402,99 @@ def check_prng(device, gpu: str) -> None:
           f"(one call between CUDA events) | {gpu}", flush=True)
 
 
+def check_projection(device, gpu: str) -> None:
+    """The projection and SH colour kernels (csrc/project.cu) at the train
+    cell's shapes against the plain path on the card: forward outputs bit
+    for bit, every leaf's gradient at a packed [N, 11] cotangent within
+    PROJ_GRAD_GAP (the benchmark's grad_gap, and the norm of the difference
+    over the leaf's); then each kernel's device time beside its bound, and
+    the plain path's forward and backward (projection and SH together)."""
+    from gaussiansplattingmlx_tpu_torch.config import RasterizerConfig
+    from gaussiansplattingmlx_tpu_torch.ops import (_kernels, projection, projection_cuda,
+                                                    rasterize_ref)
+    from gaussiansplattingmlx_tpu_torch.utils.camera import Camera
+
+    n, k = PROJ_N, (PROJ_SH + 1) ** 2
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    means = torch.randn((n, 3), generator=gen, device=device) * 2.0
+    means[:, 2] += 5.0
+    leaves = [means, torch.exp(torch.randn((n, 3), generator=gen, device=device) * 0.7 - 4.0),
+              torch.randn((n, 4), generator=gen, device=device),
+              torch.randn((n, k, 3), generator=gen, device=device) * 0.3]
+    leaves = [x.requires_grad_() for x in leaves]
+    active = (torch.rand(n, generator=gen, device=device) > 0.02).float()
+    t = Camera.from_c2w(PROJ_WIDTH, PROJ_HEIGHT, PROJ_FOCAL, PROJ_FOCAL, np.eye(4)).tensors()
+    cam = [torch.as_tensor(np.asarray(t[key], np.float32)).to(device)
+           for key in ("view", "proj", "camera_center")]
+    cam += [torch.tensor(float(t[key]), device=device)
+            for key in ("fov_x", "fov_y", "focal_x", "focal_y")]
+    cot = torch.randn((n, 11), generator=gen, device=device)
+    ones = torch.ones((n, 1), device=device)
+
+    def forward(fn):
+        return fn(*leaves, *cam, PROJ_WIDTH, PROJ_HEIGHT, PROJ_SH, active=active)
+
+    def grads(out, **kw):
+        packed = rasterize_ref.pack_gaussians(out.means2d, out.conic, out.colors, ones,
+                                              out.depths)
+        return torch.autograd.grad((packed * cot).sum(), leaves, **kw)
+
+    got = forward(projection.project_gaussians)
+    want = forward(projection.project_gaussians_plain)
+    for name in projection.ProjectionOutputs._fields:
+        a, b = getattr(got, name).detach(), getattr(want, name).detach().contiguous()
+        same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+        require(bool(same.all()), f"projection kernels: {name} differs from the plain path "
+                                  f"in {int((~same).sum())} entries")
+    got_g, want_g = grads(got), grads(want, retain_graph=True)
+    norms = [float(torch.linalg.vector_norm(w)) for w in want_g]
+    med = float(np.median(norms))
+    gaps = [(abs(float(torch.linalg.vector_norm(g)) - w) / max(w, med),
+             float(torch.linalg.vector_norm(g - x)) / w)
+            for g, x, w in zip(got_g, want_g, norms)]
+    require(all(a <= PROJ_GRAD_GAP and b <= PROJ_GRAD_GAP for a, b in gaps),
+            f"projection kernels: gradient gaps (norm gap, difference) {gaps}")
+    plain_fwd = cuda_ms(lambda: forward(projection.project_gaussians_plain))
+    plain_bwd = cuda_ms(lambda: grads(want, retain_graph=True))
+    visible = int((got.radii > 0).sum())
+    del got, want, got_g, want_g
+
+    with torch.no_grad():
+        m, s, q, shs = (x.detach() for x in leaves)
+        rc = RasterizerConfig()
+        kcam = projection_cuda.Camera(
+            *cam, PROJ_WIDTH, PROJ_HEIGHT, device=device, z_cull=rc.z_cull,
+            ndc_w_eps=rc.ndc_w_eps, tanfov_clip=rc.tanfov_clip,
+            cov2d_dilation=rc.cov2d_dilation, radius_eigen_eps=rc.radius_eigen_eps,
+            quat_norm_eps=rc.quat_norm_eps)
+        d_m, d_s, d_q, d_m2 = (torch.empty_like(x) for x in (m, s, q, m))
+        d_shs = torch.empty_like(shs)
+        cots = [cot[:, 0:2].data_ptr(), 11, cot[:, 10].data_ptr(), 11, None, 0,
+                cot[:, 2:6].data_ptr(), 11]
+        launch = {
+            "project_fwd": lambda: projection_cuda.project(m, s, q, active, kcam),
+            "sh_color_fwd": lambda: projection_cuda.sh_color(PROJ_SH, shs, m, kcam),
+            "project_bwd": lambda: projection_cuda.PROJECT_BWD_KERNEL.launch(
+                m.data_ptr(), s.data_ptr(), q.data_ptr(), active.data_ptr(), n, *kcam.args(),
+                *cots, d_m.data_ptr(), d_s.data_ptr(), d_q.data_ptr(), _kernels.stream_of(m)),
+            "sh_color_bwd": lambda: projection_cuda.SH_BWD_KERNEL.launch(
+                shs.data_ptr(), k, PROJ_SH, m.data_ptr(), kcam.center.data_ptr(),
+                cot[:, 6:9].data_ptr(), 11, n, d_shs.data_ptr(), d_m2.data_ptr(),
+                _kernels.stream_of(m))}
+        rows = []
+        for name, fn in launch.items():
+            ms = device_ms(fn)
+            b = bound(PROJ_BYTES[name] * n, PROJ_OPS[name] * n)
+            rows.append(f"{name} {ms:.4f} ms / bound {b['bound_ms']:.4f} ({b['bound_by']}) "
+                        f"{100 * b['bound_ms'] / ms:.1f}%")
+    print(f"projection kernels: {n} Gaussians ({visible} visible), SH {PROJ_SH}, "
+          f"{PROJ_WIDTH}x{PROJ_HEIGHT}: forward bit-equal to the plain path on the card, "
+          f"gradient gaps (norm gap, difference) "
+          f"{', '.join(f'{a:.2e}/{b:.2e}' for a, b in gaps)} (means3d, scales, quats, shs); "
+          f"{'; '.join(rows)}; plain path forward {plain_fwd:.4f} ms, backward {plain_bwd:.4f} "
+          f"ms (one call between CUDA events) | {gpu}", flush=True)
+
+
 def stats_dict(stats) -> dict:
     return {k: int(v) for k, v in stats._asdict().items()}
 
@@ -2220,11 +2340,11 @@ def parallel_line(name, desc, reports, log, gpu) -> list:
             f"{name}: a step overflowed the pair budget")
     per_rank = [{PAR_KERNELS[s]: n for s, n in r["launches"].items() if s in PAR_KERNELS}
                 for r in runs]
-    others = [{s: n for s, n in r["launches"].items() if s not in PAR_KERNELS and n}
-              for r in runs]
+    others = [{s: n for s, n in r["launches"].items()
+               if s not in PAR_KERNELS and s not in PROJ_SYMBOLS and n} for r in runs]
     require(all(all(n == steps for n in k.values()) for k in per_rank) and not any(others),
             f"{name}: launches {[r['launches'] for r in runs]}, expected {steps} of K1-K4 "
-            "a rank and no other kernel")
+            "a rank and no other kernel but the projection's")
     rate = [round(steps / r["seconds"], 2) for r in runs]
     collective = [round(1e3 * r["collective_seconds"] / steps, 3) for r in runs]
     peak = [round(r["peak_memory"] / 2**30, 3) for r in runs]
@@ -3144,6 +3264,9 @@ def main() -> int:
 
     # 2a. the densify noise stream, card against CPU
     check_prng(device, gpu)
+    # 2a'. the projection and SH colour kernels at the train cell's shapes
+    check_projection(device, gpu)
+    elapsed("projection")
 
     # 2b. the port's bench (bench.py's workload) through its entry point in a
     # fresh process, then K2, K1, K3 and K4 on its first-step buffers

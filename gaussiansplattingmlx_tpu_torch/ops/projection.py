@@ -1,9 +1,11 @@
 """Gaussian projection: world -> view -> NDC -> screen, EWA cov2d, SH color.
 
-Torch counterpart of the JAX package's ``ops/projection.py``.  Plain
-vectorized torch: a chain of tiny per-Gaussian contractions and elementwise
-math, which needs no hand-written kernel, differentiable by plain autograd
-(radii and rects are detached, as the JAX package stop-grads them).
+Torch counterpart of the JAX package's ``ops/projection.py``.
+``project_gaussians`` dispatches on the device of ``means3d``: CPU tensors
+take ``project_gaussians_plain``, vectorized torch differentiable by plain
+autograd (radii and rects are detached, as the JAX package stop-grads
+them); CUDA tensors take the kernels of ``projection_cuda`` (the projection,
+then the SH colour in span ``sh``), which compute the same values, or raise.
 
 Semantics replicated exactly, including the reference's quirks:
   * the +1e-6 guard on clip-space w;
@@ -33,6 +35,7 @@ import torch
 from ..utils import sh as sh_utils
 from ..utils import transforms
 from ..utils.profiler import span
+from . import projection_cuda
 
 
 class ProjectionOutputs(NamedTuple):
@@ -78,7 +81,52 @@ def project_gaussians(
     quat_norm_eps: float = 1e-8,
     active: torch.Tensor | None = None,
 ) -> ProjectionOutputs:
-    """Project N Gaussians through one camera.
+    """Project N Gaussians through one camera on the device of ``means3d``
+    (arguments and outputs as ``project_gaussians_plain``'s)."""
+    constants = dict(z_cull=z_cull, ndc_w_eps=ndc_w_eps, tanfov_clip=tanfov_clip,
+                     cov2d_dilation=cov2d_dilation, radius_eigen_eps=radius_eigen_eps,
+                     quat_norm_eps=quat_norm_eps)
+    if means3d.device.type == "cpu":
+        return project_gaussians_plain(
+            means3d, scales, quats, shs, view, proj, camera_center, fov_x, fov_y, focal_x,
+            focal_y, image_width, image_height, sh_degree, active=active, **constants)
+    if means3d.device.type != "cuda":
+        raise ValueError(f"project_gaussians: unsupported device {means3d.device}")
+    cam = projection_cuda.Camera(view, proj, camera_center, fov_x, fov_y, focal_x, focal_y,
+                                 image_width, image_height, device=means3d.device, **constants)
+    means2d, depths, cov2d, conic, radii, rect_min, rect_max = projection_cuda.project(
+        means3d, scales, quats, active, cam)
+    with span("sh"):
+        colors = projection_cuda.sh_color(sh_degree, shs, means3d, cam)
+    return ProjectionOutputs(means2d=means2d, depths=depths, colors=colors, cov2d=cov2d,
+                             conic=conic, radii=radii, rect_min=rect_min, rect_max=rect_max)
+
+
+def project_gaussians_plain(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    quats: torch.Tensor,
+    shs: torch.Tensor,
+    view: torch.Tensor,
+    proj: torch.Tensor,
+    camera_center: torch.Tensor,
+    fov_x,
+    fov_y,
+    focal_x,
+    focal_y,
+    image_width: int,
+    image_height: int,
+    sh_degree: int,
+    *,
+    z_cull: float = 0.2,
+    ndc_w_eps: float = 1e-6,
+    tanfov_clip: float = 1.3,
+    cov2d_dilation: float = 0.3,
+    radius_eigen_eps: float = 1e-5,
+    quat_norm_eps: float = 1e-8,
+    active: torch.Tensor | None = None,
+) -> ProjectionOutputs:
+    """Project N Gaussians through one camera, in plain torch on any device.
 
     means3d [N, 3]; scales [N, 3] activated; quats [N, 4] raw w-first;
     shs [N, K, 3]; view/proj [4, 4] row-vector transforms; camera_center [3];
