@@ -10,9 +10,11 @@ Payload carriage, as the JAX package runs by default:
        the 11 kernel-layout record floats, as real f32 values) is gathered to
        the pair axis by the fused merge-gather kernel (``merge_cuda``).
        Budgets above ``K2_MAX_SLOTS`` (where f32 slot values stop being
-       exact) take the ranks alone (K5) instead: the tile rect, block start
-       and gaussian id are gathered as int32, the depth as f32, and the 11
-       record rows once, by the ranks in sorted order.
+       exact), and scenes of ``F32_ID_LIMIT`` Gaussians or more (where f32
+       gaussian ids stop being exact), take the ranks alone (K5) instead:
+       the tile rect, block start and gaussian id are gathered as int32, the
+       depth as f32, and the 11 record rows once, by the ranks in sorted
+       order.
     2. ONE stable sort on (tile, depth) orders the pairs; the record rows are
        carried through it by the sort's permutation.
     3. Per-tile ranges by searchsorted.  The sorted layouts stop here: the
@@ -48,6 +50,10 @@ from .rasterize_cuda import REC_DIM
 # Largest budget the fused merge-gather (K2) takes: it carries slot indices as
 # f32 values, exact up to 2^24.  Larger budgets merge through K5's int32 ranks.
 K2_MAX_SLOTS = merge_cuda.F32_EXACT
+# Scenes of this many Gaussians or more cannot carry gaussian ids as f32
+# values (K2's table row 5, the aligned layout's record row 11): the sorted
+# layouts merge them through K5's int32 ranks, the aligned layout refuses them.
+F32_ID_LIMIT = merge_cuda.F32_EXACT
 
 
 class StagingStatic(NamedTuple):
@@ -83,8 +89,9 @@ def merge_table(st: StagingStatic, packed, rect_min, rect_max, radii, depths):
     integers (<= 2^24) are exact f32 values; no bit casting."""
     dev = packed.device
     n = packed.shape[0]
-    if n >= 2 ** 24:
-        raise ValueError("gaussian ids ride as f32 values: num_rec < 2^24")
+    if n >= F32_ID_LIMIT:
+        raise ValueError(f"gaussian ids ride as f32 values: need fewer than "
+                         f"{F32_ID_LIMIT} Gaussians, got {n}")
     e = binning_mod.expand_pairs(
         rect_min, rect_max, radii,
         st.image_width, st.image_height, st.tile_w, st.tile_h, st.max_pairs,
@@ -118,8 +125,9 @@ def _sorted_pairs(st: StagingStatic, packed, rect_min, rect_max, radii, depths):
     record rows in sorted order [11, max_pairs], the sorted gaussian id
     [max_pairs] int32 with ``num_rec`` on slots past the last pair,
     tile_start, tile_count, expansion).  Budgets above ``K2_MAX_SLOTS``
-    take ``_ranked_pairs``: the same outputs bit for bit."""
-    if st.max_pairs > K2_MAX_SLOTS:
+    and scenes of ``F32_ID_LIMIT`` Gaussians or more take ``_ranked_pairs``:
+    the same outputs bit for bit."""
+    if st.max_pairs > K2_MAX_SLOTS or packed.shape[0] >= F32_ID_LIMIT:
         return _ranked_pairs(st, packed, rect_min, rect_max, radii, depths)
     dev = packed.device
     f32 = torch.float32
@@ -155,7 +163,8 @@ def _sorted_pairs(st: StagingStatic, packed, rect_min, rect_max, radii, depths):
 
 
 def _ranked_pairs(st: StagingStatic, packed, rect_min, rect_max, radii, depths):
-    """``_sorted_pairs`` for budgets above ``K2_MAX_SLOTS``: the split
+    """``_sorted_pairs`` for budgets above ``K2_MAX_SLOTS`` or scenes of
+    ``F32_ID_LIMIT`` Gaussians or more (ranks and ids stay int32): the split
     layout's index part (``binning.ranked_sort``: K5 ranks, the tile rect
     and block start gathered as int32, the sort), then ONE gather of the 11
     record rows by the ranks in sorted order.  Bit-equal to the K2 route: a
@@ -164,9 +173,6 @@ def _ranked_pairs(st: StagingStatic, packed, rect_min, rect_max, radii, depths):
     and gathers the block start through f32, so it agrees with this route
     only on valid slots and only while the pair count is at most 2^24."""
     n = packed.shape[0]
-    if n >= 2 ** 24:
-        raise ValueError("the aligned layout carries gaussian ids as f32 values: "
-                         "num_rec < 2^24")
     f32 = torch.float32
     dev = packed.device
     r = binning_mod.ranked_sort(rect_min, rect_max, radii, depths, st.image_width,
@@ -265,6 +271,12 @@ def _stage_impl(st: StagingStatic, packed, rect_min, rect_max, radii, depths):
     (row 11, an exact float value) into the [16, _num_aligned] buffer.
     Returns (StagedPairs, gid_aligned [_num_aligned] int32 with ``num_rec``
     on columns of no gaussian)."""
+    n = packed.shape[0]
+    if n >= F32_ID_LIMIT:
+        raise ValueError(
+            f"the aligned layout carries gaussian ids as f32 values in record row 11, "
+            f"exact for fewer than {F32_ID_LIMIT} Gaussians; got {n}: train such scenes "
+            f"in the default sorted layout (train_staging=\"sorted\")")
     rec_rows, gid, tile_start, tile_count, e = _sorted_pairs(
         st, packed, rect_min, rect_max, radii, depths
     )
