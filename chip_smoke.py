@@ -17,6 +17,11 @@ and checks each against its plain PyTorch version at the shapes of its path:
   bit-equal to the plain path on the card, every leaf's gradient within
   the benchmark's grad_gap of 1e-5; each kernel's device time beside its
   byte bound, and the plain path's forward and backward times;
+* Adam's kernel (``csrc/adam.cu``) at the train cells' row counts
+  (6,100,000 and 30,000,000, SH 3): p, m and v bit-equal to the plain rule
+  on the card after a step with and without bias correction, the SH
+  gradients as column slices of d shs; its device time beside its byte
+  bound (28 B an element), and the plain rule's time;
 * the port's bench through its entry point (``python -m
   gaussiansplattingmlx_tpu_torch.bench`` at its defaults, in a fresh
   process): the JAX package's bench.py workload (its seed-0 scene of
@@ -132,7 +137,8 @@ and checks each against its plain PyTorch version at the shapes of its path:
   of a host of their own (batched views).
 
 Each main path runs with every launch counter set to 0 just before it and
-read just after.  Every phase prints one line; any failure raises and exits
+read just after: K1-K7 as its path launches them, Adam's kernel once a
+training step and never in a render.  Every phase prints one line; any failure raises and exits
 non-zero before the kernels line, the card line and the last line (the JSON
 device record).  Needs a CUDA device, the repository checkout beside this
 file, and nvcc.  Imports no JAX.
@@ -210,6 +216,12 @@ PROJ_GRAD_GAP = 1e-5
 # (projection 300, SH 3 140, a backward twice its forward).
 PROJ_BYTES = {"project_fwd": 108, "sh_color_fwd": 216, "project_bwd": 112, "sh_color_bwd": 420}
 PROJ_OPS = {"project_fwd": 300, "sh_color_fwd": 140, "project_bwd": 600, "sh_color_bwd": 280}
+# Adam (csrc/adam.cu) at the train cells' row counts (bicycle's 6,100,000,
+# Rubble's 30,000,000), SH 3: 59 floats a row.  Bytes an element, each read
+# once and written once: p, g, m and v read, p, m and v written (28);
+# operations as benchmark/counts.py counts them (12).
+ADAM_ROWS = {"bicycle": 6_100_000, "rubble": 30_000_000}
+ADAM_BYTES, ADAM_OPS = 28, 12
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s
 # and float32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -353,6 +365,8 @@ PAR_KERNELS = {"gsplat_merge_gather": "merge_gather", "gsplat_raster_fwd": "rast
 # launches.
 PROJ_SYMBOLS = ("gsplat_project_fwd", "gsplat_project_bwd", "gsplat_sh_color_fwd",
                 "gsplat_sh_color_bwd")
+# Adam's kernel, once a training step on every rank (on the mean gradient).
+ADAM_SYMBOL = "gsplat_adam_update"
 
 
 # The scatter reduction (grad_reduce="scatter") in place of K4: the sorted
@@ -1495,6 +1509,67 @@ def check_projection(device, gpu: str) -> None:
           f"ms (one call between CUDA events) | {gpu}", flush=True)
 
 
+def check_adam(device, gpu: str) -> dict:
+    """Adam's kernel (csrc/adam.cu) at the train cells' row counts against
+    the plain rule on the card: p, m and v bit for bit after one step from
+    the same state, with and without bias correction, the SH gradients as
+    column slices of d shs [N, 16, 3] as training hands them over, one launch
+    an update; then the kernel's device time beside its byte bound, and the
+    plain rule's time.  Returns those numbers, keyed by the cell's scene."""
+    from gaussiansplattingmlx_tpu_torch.models.gaussians import learning_rates
+    from gaussiansplattingmlx_tpu_torch.train import optimizer
+
+    rows, entry = [], {}
+    for scene, n in ADAM_ROWS.items():
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        shapes = {"xyz": (n, 3), "features_dc": (n, 1, 3), "features_rest": (n, 15, 3),
+                  "scales": (n, 3), "rotation": (n, 4), "opacity": (n, 1)}
+        params = {k: torch.randn(s, generator=gen, device=device) for k, s in shapes.items()}
+        state = optimizer.init(params)
+        for k in shapes:
+            state.m[k].normal_(generator=gen).mul_(1e-3)
+            state.v[k].uniform_(0.0, 1e-5, generator=gen)
+        d_shs = torch.randn((n, 16, 3), generator=gen, device=device) * 1e-3
+        grads = {k: torch.randn(s, generator=gen, device=device) * 1e-3
+                 for k, s in shapes.items() if k not in ("features_dc", "features_rest")}
+        grads["features_dc"], grads["features_rest"] = d_shs[:, :1], d_shs[:, 1:]
+        lrs = learning_rates(torch.tensor(30_000, dtype=torch.int32, device=device), 40_000)
+        elements = sum(p.numel() for p in params.values())
+        for bias in (False, True):
+            plain_p = {k: v.clone() for k, v in params.items()}
+            plain_s = optimizer.AdamState(m={k: v.clone() for k, v in state.m.items()},
+                                          v={k: v.clone() for k, v in state.v.items()},
+                                          count=state.count.clone())
+            before = optimizer.KERNEL.launches
+            optimizer.update(params, grads, state, lrs, bias_correction=bias)
+            optimizer.update_plain(plain_p, grads, plain_s, lrs, bias_correction=bias)
+            torch.cuda.synchronize()
+            require(optimizer.KERNEL.launches == before + 1,
+                    f"adam kernel: {optimizer.KERNEL.launches - before} launches an update")
+            for k in shapes:
+                for what, got, want in (("p", params[k], plain_p[k]), ("m", state.m[k],
+                                        plain_s.m[k]), ("v", state.v[k], plain_s.v[k])):
+                    require(bit_equal(got, want),
+                            f"adam kernel at {n} rows, bias correction {bias}: {what} {k} "
+                            f"differs from the plain rule")
+            del plain_p, plain_s
+        t = kernel_ms(lambda: optimizer.update(params, grads, state, lrs))
+        plain = cuda_ms(lambda: optimizer.update_plain(params, grads, state, lrs))
+        b = bound(ADAM_BYTES * elements, ADAM_OPS * elements)
+        entry.update({f"{scene}_{k}": v for k, v in (
+            ("rows", n), ("elements", elements), ("ms", t["ms"]), ("call_ms", t["call_ms"]),
+            ("plain_ms", plain), ("bound_ms", b["bound_ms"]), ("bound_by", b["bound_by"]))})
+        rows.append(f"{n} rows ({elements} elements): {t['ms']:.4f} ms (call "
+                    f"{t['call_ms']:.4f}) / bound {b['bound_ms']:.4f} ({b['bound_by']}) "
+                    f"{100 * b['bound_ms'] / t['ms']:.1f}%, plain rule {plain:.4f} ms")
+        del params, state, grads, d_shs
+        torch.cuda.empty_cache()
+    print(f"adam kernel: p, m and v bit-equal to the plain rule on the card after a step "
+          f"with and without bias correction, one launch an update; {'; '.join(rows)} (the "
+          f"plain rule one call between CUDA events) | {gpu}", flush=True)
+    return entry
+
+
 def stats_dict(stats) -> dict:
     return {k: int(v) for k, v in stats._asdict().items()}
 
@@ -1605,7 +1680,7 @@ def run_truncated(ply_path: Path, data, device, counters, expect, gpu: str):
     sys.stderr.write(err.getvalue())
     steps = TRUNCATE_STEPS
     require(launches == expect(merge_gather=steps, raster_fwd=steps, raster_bwd=steps,
-                               segsum=steps), f"truncated: launches {launches}")
+                               segsum=steps, adam=steps), f"truncated: launches {launches}")
     got = [int(log[0][k]) for k in ("num_pairs", "overflow_pairs", "overflow_gaussians")]
     require(got == want, f"truncated: the step's counts {got}, the plain expansion's {want}")
     require(all(np.isfinite(m["loss"]) and m["overflow_pairs"] > 0 for m in log),
@@ -1868,7 +1943,7 @@ def run_vendor(tmp: Path, counters, expect, gpu: str) -> dict:
     res, seconds, launches, peak = cli_run(train_cli, argv + ["--output", str(out)], counters)
     steps = VENDOR_STEPS
     require(launches == expect(merge_gather=steps, raster_fwd=steps, raster_bwd=steps,
-                               segsum=steps), f"vendored training launches {launches}")
+                               segsum=steps, adam=steps), f"vendored training launches {launches}")
     history = check_cli_training(res, "vendored training")
     trainer = res.trainer
     budget = trainer.cfg.raster.max_pairs
@@ -1906,7 +1981,8 @@ def run_vendor(tmp: Path, counters, expect, gpu: str) -> dict:
                            str(out / f"ckpt_{VENDOR_RESUME}.npz")], counters)
     left = steps - VENDOR_RESUME
     require(resume_launches == expect(merge_gather=left, raster_fwd=left, raster_bwd=left,
-                                      segsum=left), f"resumed launches {resume_launches}")
+                                      segsum=left, adam=left),
+            f"resumed launches {resume_launches}")
     require_checkpoints_equal(out / f"ckpt_{steps}.npz",
                               tmp / "vendor_resumed" / f"ckpt_{steps}.npz", "resumed CLI run")
     print(f"train_cli resume: --resume ckpt_{VENDOR_RESUME}.npz into a fresh directory, steps "
@@ -2024,7 +2100,8 @@ def run_full(tmp: Path, counters, expect, gpu: str):
         train_cli, argv + ["--output", str(out), "--config", str(cfg_path)], counters)
     steps = FULL_STEPS
     require(launches == expect(merge_gather=steps, raster_fwd=steps, raster_bwd=steps,
-                               segsum=steps), f"full-width training launches {launches}")
+                               segsum=steps, adam=steps),
+            f"full-width training launches {launches}")
     history = check_cli_training(res, "full-width training")
     require(history[-1]["loss"] < history[0]["loss"],
             f"full-width loss did not fall: {history[0]['loss']} -> {history[-1]['loss']}")
@@ -2077,7 +2154,7 @@ def run_flagship(tmp: Path, device, counters, expect, gpu: str):
                 str(FULL_SIZE), "--out", str(out), "--device", str(device)], counters)
     steps, views = FLAGSHIP_STEPS, FLAGSHIP_VIEWS
     require(launches == expect(merge_gather=steps + views, raster_fwd=steps + views,
-                               raster_bwd=steps, segsum=steps),
+                               raster_bwd=steps, segsum=steps, adam=steps),
             f"flagship launches {launches}")
     summary, trainer = res.summary, res.trainer
     require(set(summary) == FLAGSHIP_SUMMARY_KEYS,
@@ -2118,7 +2195,7 @@ def run_flagship(tmp: Path, device, counters, expect, gpu: str):
         counters)
     hsteps, held = FLAGSHIP_HOLDOUT_STEPS, FLAGSHIP_HOLDOUT
     require(hlaunches == expect(merge_gather=hsteps + held, raster_fwd=hsteps + held,
-                                raster_bwd=hsteps, segsum=hsteps),
+                                raster_bwd=hsteps, segsum=hsteps, adam=hsteps),
             f"flagship held-out launches {hlaunches}")
     hsum = hres.summary
     hold = hsum.get("holdout", {})
@@ -2341,10 +2418,12 @@ def parallel_line(name, desc, reports, log, gpu) -> list:
     per_rank = [{PAR_KERNELS[s]: n for s, n in r["launches"].items() if s in PAR_KERNELS}
                 for r in runs]
     others = [{s: n for s, n in r["launches"].items()
-               if s not in PAR_KERNELS and s not in PROJ_SYMBOLS and n} for r in runs]
-    require(all(all(n == steps for n in k.values()) for k in per_rank) and not any(others),
+               if s not in PAR_KERNELS and s not in PROJ_SYMBOLS and s != ADAM_SYMBOL and n}
+              for r in runs]
+    require(all(all(n == steps for n in k.values()) for k in per_rank) and not any(others)
+            and all(r["launches"].get(ADAM_SYMBOL) == steps for r in runs),
             f"{name}: launches {[r['launches'] for r in runs]}, expected {steps} of K1-K4 "
-            "a rank and no other kernel but the projection's")
+            "and of Adam's kernel a rank and no other kernel but the projection's")
     rate = [round(steps / r["seconds"], 2) for r in runs]
     collective = [round(1e3 * r["collective_seconds"] / steps, 3) for r in runs]
     peak = [round(r["peak_memory"] / 2**30, 3) for r in runs]
@@ -2655,7 +2734,8 @@ def run_scatter(ply_path: Path, data, device, max_pairs: int, sorted_log, counte
         require(rel <= LOSS_RTOL, f"train scatter {layout}: losses {losses.tolist()} differ "
                                   f"from the sorted segsum run's {want.tolist()}")
         check_train_run(trainer, log, final, launches,
-                        expect(raster_fwd=steps, **{k: v * steps for k, v in launched.items()}),
+                        expect(raster_fwd=steps, adam=steps,
+                               **{k: v * steps for k, v in launched.items()}),
                         seconds, torch.cuda.max_memory_allocated(), f"train scatter {layout}",
                         f" (grad_reduce='scatter'; logged losses within {rel:.2e} of the "
                         f"sorted segsum run's)", steps=steps)
@@ -3087,7 +3167,7 @@ def run_wide(ply_path: Path, data, device, counters, expect, tmp: Path, gpu: str
             f"over-2^24 step: pairs {final['num_pairs']}, overflow {final['overflow_pairs_acc']}")
     require(final["grad_coverage"] > 0, "over-2^24 step: no gaussian received a gradient")
     require(launches["train_over_2e24"] == expect(merge_ranks=1, raster_fwd=1, raster_bwd=1,
-                                                  segsum=1),
+                                                  segsum=1, adam=1),
             f"over-2^24 step: launches {launches['train_over_2e24']}")
     del trainer
     print(f"wide pairs: orbit view {view} at {size}x{size} (focal {FOCAL * size / WIDTH:.1f}), "
@@ -3229,6 +3309,7 @@ def main() -> int:
     from gaussiansplattingmlx_tpu_torch.ops import (
         _kernels, merge_cuda, rasterize_cuda, relayout_cuda, segsum_cuda, staging,
     )
+    from gaussiansplattingmlx_tpu_torch.train import optimizer
     from gaussiansplattingmlx_tpu_torch.train import trainer as trainer_mod
 
     # Every kernel's launch counter; each main path names what it must launch.
@@ -3238,7 +3319,8 @@ def main() -> int:
                 "segsum": segsum_cuda.KERNEL,
                 "merge_ranks": merge_cuda.RANKS_KERNEL,
                 "relayout": relayout_cuda.KERNEL,
-                "raster_bwd_aligned": rasterize_cuda.BWD_ALIGNED_KERNEL}
+                "raster_bwd_aligned": rasterize_cuda.BWD_ALIGNED_KERNEL,
+                "adam": optimizer.KERNEL}
 
     def expect(**launched):
         return {name: launched.get(name, 0) for name in counters}
@@ -3267,6 +3349,9 @@ def main() -> int:
     # 2a'. the projection and SH colour kernels at the train cell's shapes
     check_projection(device, gpu)
     elapsed("projection")
+    # 2a''. Adam's kernel at the train cells' row counts
+    adam = check_adam(device, gpu)
+    elapsed("adam")
 
     # 2b. the port's bench (bench.py's workload) through its entry point in a
     # fresh process, then K2, K1, K3 and K4 on its first-step buffers
@@ -3340,7 +3425,7 @@ def main() -> int:
         log, final, seconds, train_launches = run_training(trainer, counters)
         check_train_run(trainer, log, final, train_launches,
                         expect(merge_gather=steps, raster_fwd=steps, raster_bwd=steps,
-                               segsum=steps),
+                               segsum=steps, adam=steps),
                         seconds, torch.cuda.max_memory_allocated(), "train",
                         f" (probe peak {peak}; {peak16} at tile 16)")
         max_pairs = trainer.cfg.raster.max_pairs
@@ -3374,7 +3459,7 @@ def main() -> int:
                                       f"the sorted run's {sorted_losses.tolist()}")
             check_train_run(trainer, log, final, launches,
                             expect(raster_fwd=steps, raster_bwd_aligned=steps, segsum=steps,
-                                   **launched),
+                                   adam=steps, **launched),
                             seconds, torch.cuda.max_memory_allocated(), f"train {layout}",
                             f" ({', '.join(f'{k}={v!r}' for k, v in selector.items())}; "
                             f"logged losses within {rel:.2e} of the sorted run's)")
@@ -3421,7 +3506,8 @@ def main() -> int:
             print(f"densified round: {json.dumps(r)}", flush=True)
         files = check_densified(trainer, dense_log, dense_launches,
                                 expect(merge_gather=DENSE_STEPS, raster_fwd=DENSE_STEPS,
-                                       raster_bwd=DENSE_STEPS, segsum=DENSE_STEPS),
+                                       raster_bwd=DENSE_STEPS, segsum=DENSE_STEPS,
+                                       adam=DENSE_STEPS),
                                 rounds, dense_dir)
         window = sum(5 / m["iters_per_s"] for m in dense_log[1:])
         print(f"train densified: {DENSE_STEPS} steps, {N_GAUSSIANS} -> "
@@ -3453,7 +3539,8 @@ def main() -> int:
         require(resume_launches == expect(merge_gather=DENSE_STEPS - start,
                                           raster_fwd=DENSE_STEPS - start,
                                           raster_bwd=DENSE_STEPS - start,
-                                          segsum=DENSE_STEPS - start),
+                                          segsum=DENSE_STEPS - start,
+                                          adam=DENSE_STEPS - start),
                 f"resume launches {resume_launches}")
         print(f"resume: ckpt_15.npz restored into a new Trainer, steps {start + 1}-{DENSE_STEPS} "
               f"(a densify round at 20, prune-only at 30): parameters, Adam moments, "
@@ -3607,6 +3694,21 @@ def main() -> int:
         entry["bench_launches"] = bench["launches"][name]
     raster_fwd["bench_pixel_records"] = bench["entries"]["raster_fwd"]["pixel_records"]
 
+    # Adam's kernel: its times at the train cells' row counts, and its
+    # launches on every path in this process (one a training step, none in
+    # a render).
+    adam["launches_by_path"] = {
+        "serving": serve_launches["adam"], "serving_split": split_launches["adam"],
+        "bench": bench["launches"]["adam"], "truncated": trunc_launches["adam"],
+        "reference": ref_launches["adam"], "densified": dense_launches["adam"],
+        "resumed": resume_launches["adam"],
+        **{f"train_{k}": v["adam"] for k, v in layout_launches.items()},
+        **{f"scatter_{k}": v["adam"] for k, v in scatter_runs.items()},
+        **{f"wide_{k}": v["adam"] for k, v in wide["launches"].items()},
+        **{f"golden_{k}": v["adam"] for k, v in golden_launches.items()},
+        **{f"cli_{k}": v["adam"] for k, v in cli_launches.items()},
+        **{f"flagship_{k}": v["adam"] for k, v in flagship_launches.items()}}
+
     kernels = [
         {"name": "merge_gather", "route": "cuda",
          "source": "gaussiansplattingmlx_tpu_torch/csrc/merge_gather.cu",
@@ -3636,6 +3738,10 @@ def main() -> int:
          "source": "gaussiansplattingmlx_tpu_torch/csrc/rasterize_bwd_aligned.cu",
          "replaces": "gaussiansplattingmlx_tpu/ops/rasterize_pallas.py:302",
          "launches": layout_launches["aligned"]["raster_bwd_aligned"], **raster_bwd_aligned},
+        {"name": "adam_update", "route": "cuda",
+         "source": "gaussiansplattingmlx_tpu_torch/csrc/adam.cu",
+         "replaces": "no TPU kernel: the plain train/optimizer.py rule",
+         "launches": train_launches["adam"], **adam},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
